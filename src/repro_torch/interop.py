@@ -1,0 +1,112 @@
+"""Carry states, priors and environments between the two packages.
+
+The JAX package's objects reach this module as numpy leaves: a mapping of
+field names to arrays, or any object with those attributes (such as a
+JAX ``RouterState``, whose arrays ``np.asarray`` reads). Nothing here
+imports JAX. The tests use these functions so that both packages start
+from one state.
+
+A JAX ``RouterState`` is either unstacked (one router: ``A`` is
+(K, d, d)) or seed-stacked by ``vmap`` (``A`` is (S, K, d, d)); the
+port's always carries the leading state axis, which ``state_from_numpy``
+adds and ``state_to_numpy(stacked=False)`` removes.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.simulator import Environment
+from repro_torch.core.types import (
+    HYPER_FIELDS, ArmPrior, HyperParams, PacerState, RouterState,
+)
+
+_F32 = ("A", "A_inv", "b", "theta", "price", "c_tilde")
+_I32 = ("last_upd", "last_play", "t", "force_arm", "force_left")
+_PACER = ("lam", "c_ema", "budget", "enabled")
+_ENV = ("contexts", "rewards", "costs", "families", "prices_per_req",
+        "prices_per_1k")
+
+
+def _get(leaves, name):
+    if isinstance(leaves, Mapping):
+        return leaves[name]
+    return getattr(leaves, name)
+
+
+def state_from_numpy(leaves, device) -> RouterState:
+    """A port ``RouterState`` from a JAX state's leaves (unstacked or
+    seed-stacked). ``pacer`` and ``hyper`` are nested the same way."""
+    stacked = np.asarray(_get(leaves, "A")).ndim == 4
+
+    def tensor(v, dtype):
+        a = np.array(v)
+        if not stacked:
+            a = a[None]
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
+                               device=device)
+
+    kw = {n: tensor(_get(leaves, n), torch.float32) for n in _F32}
+    kw.update({n: tensor(_get(leaves, n), torch.int32) for n in _I32})
+    kw["active"] = tensor(_get(leaves, "active"), torch.bool)
+    key = np.asarray(_get(leaves, "key"))
+    if key.dtype != np.uint32 or key.shape[-1] != 2:
+        raise ValueError(f"expected raw uint32 threefry keys (..., 2); got "
+                         f"{key.dtype} {key.shape}")
+    kw["key"] = tensor(key.astype(np.int64), torch.int64)
+    p = _get(leaves, "pacer")
+    kw["pacer"] = PacerState(
+        lam=tensor(_get(p, "lam"), torch.float32),
+        c_ema=tensor(_get(p, "c_ema"), torch.float32),
+        budget=tensor(_get(p, "budget"), torch.float32),
+        enabled=tensor(_get(p, "enabled"), torch.bool))
+    h = _get(leaves, "hyper")
+    kw["hyper"] = HyperParams(**{
+        n: tensor(_get(h, n), torch.float32) for n in HYPER_FIELDS})
+    return RouterState(**kw)
+
+
+def state_to_numpy(state: RouterState, *, stacked: bool = True) -> dict:
+    """The port state's leaves as numpy, in the JAX package's dtypes (the
+    key back to uint32). ``stacked=False`` drops the state axis of an
+    S = 1 stack, giving a single router's leaves."""
+    if not stacked and state.num_states != 1:
+        raise ValueError(f"cannot unstack {state.num_states} states")
+
+    def arr(t):
+        a = t.detach().cpu().numpy()
+        return a if stacked else a[0]
+
+    out = {n: arr(getattr(state, n))
+           for n in _F32 + _I32 + ("active",)}
+    out["key"] = arr(state.key).astype(np.uint32)
+    out["pacer"] = {n: arr(getattr(state.pacer, n)) for n in _PACER}
+    out["hyper"] = {n: arr(getattr(state.hyper, n)) for n in HYPER_FIELDS}
+    return out
+
+
+def prior_from_numpy(prior, device) -> ArmPrior:
+    """An ``ArmPrior`` from (A_off, b_off) leaves."""
+    def f32(name):
+        return torch.as_tensor(np.array(_get(prior, name)),
+                               dtype=torch.float32, device=device)
+    return ArmPrior(A_off=f32("A_off"), b_off=f32("b_off"))
+
+
+def prior_to_numpy(prior: ArmPrior) -> dict:
+    return {"A_off": prior.A_off.cpu().numpy(),
+            "b_off": prior.b_off.cpu().numpy()}
+
+
+def env_from_numpy(env) -> Environment:
+    """A port ``Environment`` (numpy, like the JAX package's) from any
+    environment's fields."""
+    kw = {n: np.array(_get(env, n)) for n in _ENV}
+    return Environment(names=tuple(_get(env, "names")), **kw)
+
+
+def env_to_numpy(env: Environment) -> dict:
+    return {f.name: getattr(env, f.name) for f in dataclasses.fields(env)}

@@ -1,0 +1,8 @@
+"""Hand-written CUDA kernels of the router's main path.
+
+Each kernel package holds ``ref.py`` (the plain PyTorch version),
+``kernel.py`` (the launch of the compiled CUDA kernel) and ``ops.py`` (the
+wrapper: on a CPU tensor it runs ``ref.py``, on a CUDA tensor it checks
+its operands and launches the kernel, counting launches). The CUDA
+sources are in ``csrc/``; ``build.py`` compiles them at first use.
+"""

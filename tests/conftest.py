@@ -36,3 +36,8 @@ def no_implicit_transfers():
 def no_leaked_tracers():
     with jax.checking_leaks():
         yield
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one")

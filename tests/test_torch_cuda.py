@@ -1,0 +1,110 @@
+"""The port's CUDA kernels on the card: each against its plain version,
+and the fused closed loop against the torch oracle. Marked ``cuda``;
+without a GPU every test skips (the decision is taken inside the
+fixture, never at import). On a machine with a card:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import evaluate, router, simulator  # noqa: E402
+from repro_torch.core.types import RouterConfig  # noqa: E402
+from repro_torch.kernels.linucb_score import ops as score_ops  # noqa: E402
+from repro_torch.kernels.linucb_score.ref import linucb_score_ref  # noqa: E402
+from repro_torch.kernels.linucb_step import ops as step_ops  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inv(rng, S, K, d):
+    M = rng.standard_normal((S, K, d, d)) * 0.1
+    return np.linalg.inv(np.einsum("skij,sklj->skil", M, M) + np.eye(d) * 1.2)
+
+
+@pytest.mark.parametrize("S,R,K,d", [(1, 1, 1, 2), (3, 33, 3, 26),
+                                     (2, 300, 8, 128), (4, 7, 5, 13)])
+def test_score_kernel_matches_plain(dev, S, R, K, d):
+    rng = np.random.default_rng(S * R + d)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    args = (f(rng.standard_normal((S, R, d))),
+            f(rng.standard_normal((S, K, d)) * 0.1), f(_inv(rng, S, K, d)),
+            f(rng.uniform(0, 1, (S, K))), f(rng.uniform(0.005, 1, (S, K))),
+            f(rng.uniform(0.01, 0.1, S)))
+    n = score_ops.LAUNCHES[0]
+    got = score_ops.linucb_score(*args)
+    assert score_ops.LAUNCHES[0] == n + 1
+    torch.testing.assert_close(got, linucb_score_ref(*args), rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("S,B,K,d", [(1, 1, 3, 8), (3, 13, 4, 26),
+                                     (2, 64, 8, 128)])
+def test_step_kernel_matches_plain(dev, S, B, K, d):
+    rng = np.random.default_rng(B + d)
+    f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
+                                  device=dev)
+    Ainv = _inv(rng, S, K, d)
+    b = rng.standard_normal((S, K, d)) * 0.1
+    vec = lambda v: f(np.full(S, v))  # noqa: E731
+    args = [f(np.linalg.inv(Ainv)), f(Ainv), f(b),
+            f(np.einsum("skij,skj->ski", Ainv, b)),
+            torch.as_tensor(rng.integers(0, 50, (S, K)), dtype=torch.int32,
+                            device=dev),
+            f(rng.standard_normal((S, B, d))), f(rng.uniform(0, 1, (S, B, K))),
+            f(rng.uniform(0, 1e-3, (S, B, K))),
+            f(rng.uniform(0, 1e-7, (S, B, K))),
+            torch.ones((S, K), dtype=torch.bool, device=dev),
+            f(rng.uniform(0, 0.5, (S, K))), f(rng.uniform(0.01, 1, (S, K))),
+            vec(0.05), vec(0.997), vec(0.05), vec(0.05), vec(5.0),
+            vec(0.2), vec(5e-4), vec(6.6e-4),
+            torch.full((S,), 60, dtype=torch.int32, device=dev),
+            torch.zeros((S,), dtype=torch.int32, device=dev),
+            (torch.arange(B, device=dev) < 2)[None].expand(S, B).contiguous()]
+    n = step_ops.LAUNCHES[0]
+    got = step_ops.linucb_step(*args)
+    assert step_ops.LAUNCHES[0] == n + 1
+    want = step_ops.linucb_step(*(a.cpu() for a in args))
+    for g, w in zip(got, want):
+        if g.dtype == torch.int32:
+            assert torch.equal(g.cpu(), w)
+        else:
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("batch_size", [None, 16])
+def test_fused_run_matches_oracle(dev, batch_size):
+    b = simulator.make_benchmark(
+        seed=0, splits={"train": 256, "val": 16, "test": 128}, device=dev)
+    priors = evaluate.fit_warmup_priors(RouterConfig(), b.train)
+    res = {}
+    for bk in ("torch", "fused"):
+        res[bk] = evaluate.run(RouterConfig(backend=bk), b.test, 6.6e-4,
+                               seeds=(0, 1, 2), priors=priors, n_eff=1164.0,
+                               batch_size=batch_size)
+    assert (res["torch"].arms == res["fused"].arms).mean() >= 0.99
+    assert abs(res["torch"].mean_reward - res["fused"].mean_reward) < 1e-3
+
+
+def test_select_batch_score_backend_on_card(dev):
+    b = simulator.make_benchmark(
+        seed=1, splits={"train": 256, "val": 64, "test": 64}, device=dev)
+    cfg = RouterConfig()
+    _, st = evaluate.run(cfg, b.test, 6.6e-4, seeds=(0, 1), batch_size=16,
+                         priors=evaluate.fit_warmup_priors(cfg, b.train),
+                         n_eff=1164.0, return_states=True)
+    xs, _, _, _ = evaluate.build_run_streams(cfg, b.val, (0, 1))
+    dec, _ = router.select_batch(RouterConfig(backend="score"), st, xs)
+    ref, _ = router.select_batch(RouterConfig(backend="torch"), st, xs)
+    assert (dec.scores - ref.scores).abs().max() <= 1e-4

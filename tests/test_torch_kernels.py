@@ -1,0 +1,168 @@
+"""The plain versions of the port's two kernels against the JAX kernels,
+with a leading state axis S in {1, 3}: ``linucb_score`` against
+``repro.kernels.linucb_score.ops.linucb_score`` in interpret mode,
+``linucb_step`` against the jitted ``linucb_step_ref`` (bitwise to the
+Pallas kernel in interpret mode). On these CPU tensors the wrappers run
+the plain versions; the CUDA kernels are held against them on the card
+(``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.kernels.linucb_score.ops import linucb_score as jscore  # noqa: E402
+from repro.kernels.linucb_step.ref import linucb_step_ref as jstep_ref  # noqa: E402
+from repro_torch.kernels import checks  # noqa: E402
+from repro_torch.kernels.linucb_score import ops as score_ops  # noqa: E402
+from repro_torch.kernels.linucb_step import ops as step_ops  # noqa: E402
+from repro_torch.kernels.linucb_step.ref import linucb_step_ref  # noqa: E402
+
+
+def _spd_inv(rng, lead, d):
+    M = rng.standard_normal(lead + (d, d)) * 0.1
+    A = np.einsum("...ij,...kj->...ik", M, M) + np.eye(d) * 1.2
+    return A, np.linalg.inv(A)
+
+
+def _t(a, dtype=torch.float32):
+    return torch.as_tensor(np.asarray(a), dtype=dtype)
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("R,K,d", [(32, 3, 26), (100, 4, 26), (7, 8, 13)])
+def test_score_ref_vs_jax(S, R, K, d):
+    """Ragged R (100, 7) included: the JAX op pads rows to its block."""
+    rng = np.random.default_rng(R + K + d + S)
+    x = rng.standard_normal((S, R, d)).astype(np.float32)
+    theta = (rng.standard_normal((S, K, d)) * 0.1).astype(np.float32)
+    _, ainv = _spd_inv(rng, (S, K), d)
+    ainv = ainv.astype(np.float32)
+    pen = rng.uniform(0, 1, (S, K)).astype(np.float32)
+    infl = rng.uniform(0.005, 1.0, (S, K)).astype(np.float32)
+    alpha = rng.uniform(0.01, 0.1, S).astype(np.float32)
+    score_ops.LAUNCHES[0] = 0
+    got = score_ops.linucb_score(_t(x), _t(theta), _t(ainv), _t(pen),
+                                 _t(infl), _t(alpha))
+    assert score_ops.LAUNCHES[0] == 0          # CPU tensors: plain version
+    assert got.shape == (S, R, K)
+    for s in range(S):
+        want = jscore(x[s], theta[s], ainv[s], pen[s], infl[s],
+                      alpha=alpha[s], block_r=32, interpret=True)
+        np.testing.assert_allclose(got[s].numpy(), np.asarray(want),
+                                   rtol=2e-4, atol=2e-5)
+
+
+def _step_operands(S, B=24, K=3, d=10, seed=7):
+    """The JAX op's packed operands (hyper, clock and pacer rows, masks as
+    i32 / f32) with a state axis, each state its own draw."""
+    rng = np.random.default_rng(seed)
+    _, A_inv = _spd_inv(rng, (S, K), d)
+    A = np.linalg.inv(A_inv)
+    b = rng.standard_normal((S, K, d)) * 0.1
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    hypf = np.tile([0.05, 0.997, 0.05, 0.05, 5.0, 0.0, 0.0, 0.0], (S, 1))
+    hypf[:, 1] = rng.uniform(0.95, 1.0, S)
+    return dict(
+        A=f32(A), A_inv=f32(A_inv), b=f32(b),
+        theta=f32(np.einsum("skij,skj->ski", A_inv, b)),
+        last_upd=rng.integers(0, 50, (S, K)).astype(np.int32),
+        x=f32(rng.standard_normal((S, B, d))),
+        rewards=f32(rng.uniform(0, 1, (S, B, K))),
+        costs=f32(rng.uniform(0, 1e-3, (S, B, K))),
+        noise=f32(rng.uniform(0, 1e-7, (S, B, K))),
+        forced=np.tile((np.arange(B) < 3).astype(np.int32), (S, 1)),
+        cand=f32(rng.uniform(0, 1, (S, K)) > 0.2),
+        pen=f32(rng.uniform(0, 0.5, (S, K))),
+        infl=f32(rng.uniform(0.01, 1.0, (S, K))),
+        hypf=f32(hypf),
+        ints=np.stack([np.full(S, 60), rng.integers(0, K, S)],
+                      1).astype(np.int32),
+        pacer=f32(np.tile([0.2, 5e-4, 6.6e-4, 0.0], (S, 1))),
+    )
+
+
+def _port_operands(ops):
+    """The port's operands (``ops.OPERANDS`` order) from the JAX op's
+    packed ones: each packed column becomes its (S,) leaf, masks bool."""
+    t = {k: _t(v, torch.int32 if v.dtype == np.int32 else torch.float32)
+         for k, v in ops.items()}
+    return (t["A"], t["A_inv"], t["b"], t["theta"], t["last_upd"], t["x"],
+            t["rewards"], t["costs"], t["noise"], t["cand"] > 0, t["pen"],
+            t["infl"], *t["hypf"][:, :5].unbind(1),
+            *t["pacer"][:, :3].unbind(1), t["ints"][:, 0], t["ints"][:, 1],
+            t["forced"] > 0)
+
+
+def _jax_step(ops, s, num_valid):
+    """The jitted JAX ref on state ``s`` of the packed operands: (A',
+    A_inv', b', theta', last_upd', arms, r, c, lam', c_ema') unpacked."""
+    one = {k: v[s] for k, v in ops.items()}
+    for k in ("last_upd", "cand", "pen", "infl", "hypf", "ints", "pacer"):
+        one[k] = one[k][None]
+    one["forced"] = one["forced"][:, None]
+    ref = jax.jit(functools.partial(jstep_ref, num_valid=num_valid,
+                                    dt_max=4096))
+    A, Ainv, b, theta, lu, arms, rc, pacer = (
+        np.asarray(w) for w in ref(*(jnp.asarray(v) for v in one.values())))
+    return (A, Ainv, b, theta, lu[0], arms[:, 0], rc[:, 0], rc[:, 1],
+            pacer[0, 0], pacer[0, 1])
+
+
+_STEP_OUT = ("A", "A_inv", "b", "theta", "last_upd", "arms", "r", "c", "lam",
+             "c_ema")
+
+
+@pytest.mark.parametrize("S", [1, 3])
+@pytest.mark.parametrize("num_valid", [20, 24])
+def test_step_ref_vs_jax(S, num_valid):
+    """Arms and last_upd exact; stats, theta and pacer within 1e-4 (the
+    contract of tests/test_kernels.py's fused-step checks)."""
+    ops = _step_operands(S)
+    got = linucb_step_ref(*_port_operands(ops), num_valid=num_valid,
+                          dt_max=4096)
+    for s in range(S):
+        want = _jax_step(ops, s, num_valid)
+        for n, g, w in zip(_STEP_OUT, got, want):
+            g = g[s].numpy()
+            if n in ("last_upd", "arms"):
+                assert np.array_equal(g, w), n
+            else:
+                np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4,
+                                           err_msg=n)
+
+
+def test_step_op_packs_like_the_jax_op():
+    """ops.linucb_step (the wrapper the router calls) on CPU tensors takes
+    each of the JAX op's packed hyper / clock / pacer columns as its own
+    (S,) leaf and the masks as bool, runs the plain version on them, and
+    launches nothing; with every row valid it agrees with the JAX op."""
+    S, B, K, d = 2, 9, 4, 6
+    ops = _step_operands(S, B=B, K=K, d=d, seed=3)
+    args = _port_operands(ops)
+    assert len(args) == len(step_ops.OPERANDS)
+    step_ops.LAUNCHES[0] = 0
+    out = step_ops.linucb_step(*args, dt_max=4096)
+    ref = linucb_step_ref(*args, num_valid=B, dt_max=4096)
+    assert step_ops.LAUNCHES[0] == 0
+    for g, w in zip(out, ref):
+        assert torch.equal(g, w)
+    for s in range(S):
+        for n, g, w in zip(_STEP_OUT, out, _jax_step(ops, s, B)):
+            np.testing.assert_allclose(g[s].numpy(), w, atol=1e-4,
+                                       rtol=1e-4, err_msg=n)
+
+
+def test_wrappers_refuse_mixed_or_bad_operands():
+    with pytest.raises(ValueError):
+        checks.on_cpu(torch.zeros(1), torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError):
+        checks.cuda_operands("k", (1, 2, 200), x=(torch.zeros(1), (1,)))
+    with pytest.raises(TypeError):
+        checks.cuda_operands("k", (1, 2, 3), x=(torch.zeros(2, 3).double(),
+                                                (2, 3)))
+    with pytest.raises(ValueError):
+        checks.cuda_operands("k", (1, 2, 3), x=(torch.zeros(3, 2).T, (2, 3)))
