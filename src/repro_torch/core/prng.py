@@ -82,8 +82,26 @@ def random_bits(key: Tensor, shape: tuple) -> Tensor:
     return bits1 ^ bits2
 
 
-def uniform(key: Tensor, shape: tuple) -> Tensor:
-    """``jax.random.uniform(key, shape)`` in [0, 1): (..., *shape) f32."""
+def uniform(key: Tensor, shape: tuple, minval: float = 0.0,
+            maxval: float = 1.0) -> Tensor:
+    """``jax.random.uniform(key, shape, minval=, maxval=)`` in
+    [minval, maxval): (..., *shape) f32. As in JAX, the [0, 1) floats are
+    scaled by (maxval - minval) (an f32 difference) and shifted by minval
+    with one rounding, as XLA's fused multiply-add does (the f32 product is
+    exact in f64), then floored at minval."""
     bits = random_bits(key, shape)
     float_bits = (bits >> 9) | 0x3F800000          # exponent of 1.0
-    return float_bits.to(torch.int32).view(torch.float32) - 1.0
+    floats = float_bits.to(torch.int32).view(torch.float32) - 1.0
+    if minval == 0.0 and maxval == 1.0:            # the affine map is exact
+        return floats
+    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    fused = (floats.double() * (hi - lo).double() + lo.double()).float()
+    return torch.maximum(lo, fused)
+
+
+def gumbel(key: Tensor, shape: tuple) -> Tensor:
+    """``jax.random.gumbel(key, shape)`` (its default "low" mode):
+    -log(-log(u)) with u uniform in [tiny, 1), f32."""
+    u = uniform(key, shape, minval=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))

@@ -232,6 +232,44 @@ def validate_leaf_partition() -> None:
             f"unknown={sorted(union - fields)}")
 
 
+def merge_learn_leaves(select_side: RouterState,
+                       learn_side: RouterState) -> RouterState:
+    """The gateway publish merge: LEARN_LEAVES from the learner's output,
+    everything else (select bookkeeping + control plane) from the live
+    select-side state."""
+    return dataclasses.replace(
+        select_side,
+        **{n: getattr(learn_side, n) for n in LEARN_LEAVES})
+
+
+def with_hyperparams(state: RouterState, hyper: Optional[HyperParams] = None,
+                     **overrides) -> RouterState:
+    """Retune a state's hyper-parameters: a full replacement ``hyper`` (a
+    scalar or (S,) per field) or field ``overrides`` on the state's
+    current values. Values are range-checked before they become leaves;
+    the merged c_ceil must exceed the merged c_floor in every state."""
+    S = state.num_states
+    device = state.A.device
+    hp = (state.hyper if hyper is None
+          else hyper.validate().as_leaves(S, device))
+    if overrides:
+        unknown = sorted(set(overrides) - set(HYPER_FIELDS))
+        if unknown:
+            raise TypeError(f"unknown hyper-parameters: {unknown}")
+        for name, v in overrides.items():
+            ok, want = HyperParams._RANGES[name]
+            if not ok(float(v)):
+                raise ValueError(f"HyperParams.{name}={v!r}: must be {want}")
+        hp = dataclasses.replace(hp, **{
+            k: torch.as_tensor(v, dtype=torch.float32, device=device)
+            .expand(S).contiguous() for k, v in overrides.items()})
+        if not bool((hp.c_ceil > hp.c_floor).all()):
+            raise ValueError(
+                "HyperParams.c_ceil must exceed c_floor (merged with the "
+                "state's current values)")
+    return dataclasses.replace(state, hyper=hp)
+
+
 @dataclasses.dataclass(frozen=True)
 class ArmPrior:
     """Offline sufficient statistics for warm start (§3.4)."""

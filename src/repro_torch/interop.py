@@ -1,4 +1,5 @@
-"""Carry states, priors and environments between the two packages.
+"""Carry states, priors, environments, model parameters and decode caches
+between the two packages.
 
 The JAX package's objects reach this module as numpy leaves: a mapping of
 field names to arrays, or any object with those attributes (such as a
@@ -23,6 +24,8 @@ from repro_torch.core.simulator import Environment
 from repro_torch.core.types import (
     HYPER_FIELDS, ArmPrior, HyperParams, PacerState, RouterState,
 )
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import DecodeCaches
 
 _F32 = ("A", "A_inv", "b", "theta", "price", "c_tilde")
 _I32 = ("last_upd", "last_play", "t", "force_arm", "force_left")
@@ -110,3 +113,48 @@ def env_from_numpy(env) -> Environment:
 
 def env_to_numpy(env: Environment) -> dict:
     return {f.name: getattr(env, f.name) for f in dataclasses.fields(env)}
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
+    """The port's parameters from a JAX ``init_model`` tree: the same nested
+    dicts, per-layer leaves stacked on axis 0, weights in JAX's
+    ``(d_in, d_out)`` layout, f32 as JAX stores them."""
+    if not isinstance(tree, Mapping):
+        return torch.as_tensor(np.array(tree, np.float32), device=device)
+    out = {k: params_from_numpy(v, cfg, device) for k, v in tree.items()}
+    if "blocks" in out:
+        L = next(iter(_leaves(out["blocks"]))).shape[0]
+        if L != cfg.num_layers:
+            raise ValueError(f"{cfg.name}: tree has {L} stacked layers, "
+                             f"config {cfg.num_layers}")
+    return out
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, Mapping):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameters as a nested dict of f32 numpy arrays."""
+    if not isinstance(params, Mapping):
+        return params.detach().float().cpu().numpy()
+    return {k: params_to_numpy(v) for k, v in params.items()}
+
+
+def caches_from_numpy(caches, device) -> DecodeCaches:
+    """The port's ``DecodeCaches`` from a JAX dense-family ``DecodeCaches``
+    (its ``k``, ``v`` and scalar ``pos``)."""
+    def tensor(name):
+        return torch.as_tensor(np.array(_get(caches, name)), device=device)
+    return DecodeCaches(k=tensor("k"), v=tensor("v"),
+                        pos=int(np.asarray(_get(caches, "pos"))))
+
+
+def caches_to_numpy(caches: DecodeCaches) -> dict:
+    return {"k": caches.k.detach().float().cpu().numpy(),
+            "v": caches.v.detach().float().cpu().numpy(),
+            "pos": np.int32(caches.pos)}

@@ -1,4 +1,4 @@
-"""Builds the router's CUDA kernels at first use and loads them.
+"""Builds the port's CUDA kernels at first use and loads them.
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects are linked into one shared library
@@ -24,7 +24,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-LIB_NAME = "librouter_kernels.so"
+LIB_NAME = "libport_kernels.so"
 
 _LIB = None
 
@@ -106,7 +106,8 @@ def build_log() -> str:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with the argument
     types of every entry point declared: pointers and the stream as
-    ``c_void_p``, sizes as ``c_int``."""
+    ``c_void_p``, sizes, modes and dtype codes as ``c_int``, the attention
+    scale as ``c_float``."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
@@ -115,5 +116,10 @@ def library() -> ctypes.CDLL:
         lib.linucb_score_launch.restype = I
         lib.linucb_step_launch.argtypes = [P] * 33 + [I] * 6 + [P]
         lib.linucb_step_launch.restype = I
+        F = ctypes.c_float
+        lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 8 + [F, I, P]
+        lib.flash_attention_launch.restype = I
+        lib.decode_attention_launch.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
+        lib.decode_attention_launch.restype = I
         _LIB = lib
     return _LIB

@@ -108,3 +108,84 @@ def test_select_batch_score_backend_on_card(dev):
     dec, _ = router.select_batch(RouterConfig(backend="score"), st, xs)
     ref, _ = router.select_batch(RouterConfig(backend="torch"), st, xs)
     assert (dec.scores - ref.scores).abs().max() <= 1e-4
+
+
+ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
+            torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV,hd,mode,window", [
+    (1, 33, 4, 4, 64, "causal", 0), (2, 100, 8, 2, 32, "sliding", 17),
+    (1, 64, 8, 1, 128, "full", 0), (2, 130, 6, 3, 48, "causal", 0)])
+def test_flash_kernel_matches_plain(dev, dtype, B, S, H, KV, hd, mode,
+                                    window):
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(S + hd)
+    q, k, v = (torch.randn(s, generator=g, device=dev, dtype=dtype)
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
+    n = fa_ops.LAUNCHES[0]
+    got = fa_ops.flash_attention(q, k, v, mode=mode, window=window)
+    assert fa_ops.LAUNCHES[0] == n + 1
+    want = flash_attention_ref(q, k, v, mode=mode, window=window)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KV,hd,pos,window", [
+    (1, 40, 4, 4, 64, 33, 0), (2, 136, 8, 2, 128, 130, 0),
+    (1, 300, 16, 2, 32, 1000, 100)])
+def test_decode_kernel_matches_plain(dev, dtype, B, W, H, KV, hd, pos,
+                                     window):
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.attention import ring_valid
+
+    g = torch.Generator(device=dev).manual_seed(W + hd)
+    q, kc, vc = (torch.randn(s, generator=g, device=dev, dtype=dtype)
+                 for s in ((B, 1, H, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    valid = ring_valid(pos, W, window, dev)
+    n = da_ops.LAUNCHES[0]
+    got = da_ops.decode_attention(q, kc, vc, valid)
+    assert da_ops.LAUNCHES[0] == n + 1
+    want = decode_attention_ref(q, kc, vc, valid)
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+
+
+def test_portfolio_serves_on_card(dev):
+    """A 3-arm SMOKE portfolio served on the card through the kernels:
+    every request generates, both attention kernels launch, and the
+    kernel route's prefill logits agree with the plain route's."""
+    from repro_torch import configs
+    from repro_torch.core.costs import price_from_active_params
+    from repro_torch.core.features import fit_pca_whitener, hash_encode_batch
+    from repro_torch.data import make_request_stream
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.serving import PortfolioServer, ServedModel
+
+    arms = ("olmo-1b", "deepseek-7b", "deepseek-67b")
+    models = [ServedModel.init(
+        configs.get_smoke(a),
+        price_from_active_params(a, configs.get_config(a).active_params(),
+                                 mean_req_tokens=600),
+        tier, seed=i, device=dev)
+        for i, (a, tier) in enumerate(zip(arms, ("budget", "mid",
+                                                 "frontier")))]
+    corpus = [r["prompt"] for r in make_request_stream(200, seed=7)]
+    srv = PortfolioServer(models, fit_pca_whitener(hash_encode_batch(corpus),
+                                                   device=dev),
+                          budget=6.6e-4, max_new_tokens=4, device=dev)
+    fa0, da0 = fa_ops.LAUNCHES[0], da_ops.LAUNCHES[0]
+    res = srv.serve_batch(make_request_stream(8, seed=11))
+    assert len(res) == 8 and all(r.tokens_out == 4 for r in res)
+    assert fa_ops.LAUNCHES[0] > fa0 and da_ops.LAUNCHES[0] > da0
+    from repro_torch.models import prefill_forward
+
+    toks = torch.arange(2, 34, device=dev)[None]
+    for m in models:
+        got, _ = prefill_forward(m.params, m.cfg, toks, impl="cuda")
+        want, _ = prefill_forward(m.params, m.cfg, toks, impl="chunked")
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

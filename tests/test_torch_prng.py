@@ -79,3 +79,23 @@ def test_block_tiebreak_noise(B, K):
             jcfg, jcfg.hyper.as_leaves(), jax.random.PRNGKey(s), B)
         assert np.array_equal(np.asarray(jkey), key[i].numpy())
         assert np.array_equal(_bits(jnoise), _bits(noise[i].numpy()))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("lo,hi", [(-2.0, 3.0), (0.5, 0.7), (-1e-3, 2e-3),
+                                   (float(np.finfo(np.float32).tiny), 1.0)])
+def test_uniform_range_bitwise(seed, lo, hi):
+    """``uniform(minval, maxval)``: XLA fuses the scale and shift into one
+    rounding; the port matches it bit for bit."""
+    want = jax.random.uniform(jax.random.PRNGKey(seed), (3, 64), minval=lo,
+                              maxval=hi)
+    got = prng.uniform(prng.PRNGKey(seed), (3, 64), minval=lo, maxval=hi)
+    assert np.array_equal(_bits(want), got.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_matches_jax(seed):
+    """Same uniforms bit for bit; the two logs may differ by an ulp."""
+    want = np.asarray(jax.random.gumbel(jax.random.PRNGKey(seed), (4, 256)))
+    got = prng.gumbel(prng.PRNGKey(seed), (4, 256)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
