@@ -28,18 +28,27 @@ build/kernels/ at first use), then:
   6. holds the two attention kernels (flash_attention, decode_attention)
      against their plain versions at olmo-1b's and deepseek-67b's shapes
      (bf16) and at ragged f32 shapes, and times kernel, plain version and
-     torch's scaled_dot_product_attention on the same inputs;
-  7. drives the served path at full width: a PortfolioServer of olmo-1b
-     (16 layers), deepseek-7b (30 layers) and deepseek-67b at full width
-     with its depth cut to 4 layers, bf16 weights from seeds, each priced
-     from its FULL config; generates once per arm, then serves 24 requests
-     in windows of 8 with deferred feedback (budget 6.6e-4, 8 new
-     tokens); the attention kernels' counters are zeroed just before and
-     read just after, and each must have been launched;
+     torch's scaled_dot_product_attention on the same inputs; then the
+     SSD scan (ssd_scan) at mamba2-370m's served shapes (the 24 requests'
+     prompts pad to 32 tokens, one chunk of 32 rows; the longest prompt
+     the server keeps is 128, one full chunk), at 16 chunks (bf16) and at
+     a ragged f32 shape, kernel and plain version (no single library call
+     computes the scan);
+  7. drives the served path at full width: a PortfolioServer of the JAX
+     driver's trio, olmo-1b (16 layers), mamba2-370m (48 layers, nothing
+     cut) and deepseek-67b at full width with its depth cut to 4 layers,
+     bf16 weights from seeds, each priced from its FULL config; the
+     served kernels' counters are zeroed, each arm generates once, then
+     24 requests are served in windows of 8 with deferred feedback
+     (budget 6.6e-4, 8 new tokens); each served kernel must have been
+     launched, and the launches of the 24 requests must equal what the
+     printed traffic implies (flash one per attention layer per request,
+     decode one per layer per token, ssd_scan one per mamba2 layer per
+     request);
   8. teacher-forces one prompt and 8 fixed tokens per arm through the
      kernel route and the plain route: logits within the bf16 tolerance;
   9. traces one request per arm: host ms of prefill and of a decode
-     token, device busy ms and idle share, the attention kernels' share.
+     token, device busy ms and idle share, the ported kernels' share.
 
 Prints the kernels JSON line, then the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -67,6 +76,8 @@ BF16_FLOP_PER_S = 989e12
 
 # The attention kernels' tolerances (tests/test_kernels.py): (rtol, atol).
 ATTN_TOL = {"float32": (2e-4, 2e-5), "bfloat16": (5e-2, 5e-2)}
+# The SSD scan's (tests/test_kernels.py's SSD tests): f32 and bf16 inputs.
+SSD_TOL = {"float32": 2e-4, "bfloat16": 0.08}
 
 SEEDS = tuple(range(20))
 N_EFF = 1164.0
@@ -427,8 +438,67 @@ def check_decode(gen, B, W, H, KV, hd, dtype, pos, window=0):
                 bound_by=by, flops=flops, bytes=nbytes)
 
 
-# The served portfolio: (arch, tier, layers kept of the FULL config).
-ARMS = (("olmo-1b", "budget", None), ("deepseek-7b", "mid", None),
+def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
+    """ssd_scan against its plain version on the model's layout: x, B and
+    C are views of one (B, L, H P + 2 N) projection, as mamba2_forward
+    passes them; y and h_final are both held to the SSD tolerance."""
+    import torch
+
+    from repro_torch.kernels.ssd_scan import ops
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhp
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    xBC = torch.randn((B, L, H * P + 2 * N), generator=gen, device="cuda",
+                      dtype=dtype)
+    xs, Bi, Ci = torch.split(xBC, [H * P, N, N], dim=-1)
+    x = xs.reshape(B, L, H, P)
+    dt = torch.rand((B, L, H), generator=gen, device="cuda") * 0.099 + 0.001
+    A = -(torch.rand((H,), generator=gen, device="cuda") * 3.5 + 0.5)
+    D = torch.randn((H,), generator=gen, device="cuda")
+    args = (x, dt, A, Bi, Ci, D)
+    name = str(dtype).split(".")[1]
+    tol = SSD_TOL[name]
+    chunk = min(chunk, L)          # what ops.ssd_scan launches
+    got = ops.ssd_scan(*args, chunk=chunk)
+    want = ssd_scan_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    errs = []
+    for g, w in zip(got, want):
+        diff = (g.float() - w.float()).abs()
+        errs.append(float(diff.max()))
+        assert bool((diff <= tol + tol * w.float().abs()).all()
+                    and g.float().isfinite().all()), (
+            f"ssd_scan disagrees at {(B, L, H, P, N, name, chunk)}: "
+            f"max abs err {errs[-1]}")
+    y, h = torch.empty_like(got[0]), torch.empty_like(got[1])
+    ms = cuda_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
+    plain_ms = cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk),
+                       reps=5 if L > 512 else 20)
+    # Bytes: x, B, C, y in the input dtype, dt, A, D and h_final in f32,
+    # each once. Operations, per batch row and chunk of q rows inside L:
+    # C B^T over the lower triangle once (B and C are shared by the
+    # heads), then per head the masked M x, the state's B^T (w x) and,
+    # after the first chunk (h = 0 before it), its C h: 2 per FMA.
+    es = x.element_size()
+    nbytes = (es * (2 * B * L * H * P + 2 * B * L * N)
+              + 4 * (B * L * H + 2 * H + B * H * N * P))
+    flops = 0
+    for c0 in range(0, L, chunk):
+        q = min(chunk, L - c0)
+        per_head = q * (q + 1) * P + 2 * q * N * P * (2 if c0 else 1)
+        flops += B * (q * (q + 1) * N + H * per_head)
+    bms, by = bound(nbytes, flops)
+    return dict(shape=dict(B=B, L=L, H=H, P=P, N=N, dtype=name,
+                           chunk=chunk),
+                max_abs_err=max(errs), max_abs_err_y=errs[0],
+                max_abs_err_h=errs[1], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
+                bytes=nbytes)
+
+
+# The served portfolio, the JAX driver's default trio: (arch, tier,
+# layers kept of the FULL config).
+ARMS = (("olmo-1b", "budget", None), ("mamba2-370m", "mid", None),
         ("deepseek-67b", "frontier", 4))
 SERVE_BUDGET = 6.6e-4
 SERVE_NEW_TOKENS = 8
@@ -552,8 +622,9 @@ def trace_request(model, text):
     """Host ms of prefill, of one decode token and of one whole request
     (prefill + 8 tokens), each the least of 7 synchronised calls; then the
     request once under torch.profiler for its device busy ms and the
-    attention kernels' share of device time. The idle share is 1 - busy /
-    the unprofiled request time (the profiler slows the host)."""
+    ported kernels' share of device time (flash_attention,
+    decode_attention, ssd_scan). The idle share is 1 - busy / the
+    unprofiled request time (the profiler slows the host)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -564,7 +635,8 @@ def trace_request(model, text):
     _, caches = prefill_forward(model.params, model.cfg, toks, cache_len=W)
     cur = torch.full((1, 1), 7, device="cuda")
     # decode_step writes its token's K/V at the same slot on every call
-    # with these caches, so repeated calls time the same step.
+    # with these caches, so repeated calls time the same step (an SSM's
+    # state moves on, at the same cost).
     ids = toks[0].cpu().numpy()
     request = lambda: model.generate(ids, SERVE_NEW_TOKENS)  # noqa: E731
     prefill_ms, token_ms, wall_ms = host_ms([
@@ -579,12 +651,13 @@ def trace_request(model, text):
     assert kernels, "the profiler recorded no device kernel"
     us = lambda es: sum(e.time_range.elapsed_us() for e in es)  # noqa: E731
     busy = us(kernels) / 1e3
-    attn = us([e for e in kernels if "flash_kernel" in e.name
-               or "decode_kernel" in e.name]) / 1e3
+    ours = us([e for e in kernels if any(
+        k in e.name for k in ("flash_kernel", "decode_kernel",
+                              "ssd_kernel"))]) / 1e3
     return dict(prefill_ms=prefill_ms, token_ms=token_ms,
                 request_ms=wall_ms, busy_ms=busy, idle_share=1 - busy / wall_ms,
-                kernels=len(kernels), attention_ms=attn,
-                attention_share=attn / busy)
+                kernels=len(kernels), ported_ms=ours,
+                ported_share=ours / busy)
 
 
 def main() -> int:
@@ -728,10 +801,11 @@ def main() -> int:
               f"{1 - busy_ms / block_ms:.4f}), linucb_step's two kernels "
               f"{ours_ms:.3f} ms")
 
-    # Phase 6: the attention kernels against their plain versions.
+    # Phase 6: the served models' kernels against their plain versions.
     from repro_torch.data import make_request_stream
     from repro_torch.kernels.decode_attention import ops as decode_ops
     from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf16, f32 = torch.bfloat16, torch.float32
@@ -747,13 +821,41 @@ def main() -> int:
         check_decode(gen, 1, 4096, 64, 8, 128, bf16, pos=5000, window=3000),
         check_decode(gen, 2, 40, 8, 2, 32, f32, pos=35),
     ]
-    for c in flash_checks + decode_checks:
+    ssd_checks = [
+        check_ssd(gen, 1, 32, 32, 64, 128, bf16),      # the served prompts
+        check_ssd(gen, 1, 128, 32, 64, 128, bf16),     # the longest prompt
+        check_ssd(gen, 1, 2048, 32, 64, 128, bf16),    # 16 chunks
+        check_ssd(gen, 2, 40, 4, 8, 16, f32, chunk=16),  # ragged L
+    ]
+    for c in flash_checks + decode_checks + ssd_checks:
         print(f"[kernel] {json.dumps(c)}")
 
-    # Phase 7: the served path at full width.
+    # Phase 7: the served path at full width. The served kernels' counters
+    # are zeroed before the first generate of each arm.
     server = build_portfolio()
+    arms = server.models[:len(ARMS)]
     stream = make_request_stream(24, seed=11)
-    for model in server.models[:len(ARMS)]:
+    served_ops = {"flash_attention": flash_ops,
+                  "decode_attention": decode_ops, "ssd_scan": ssd_ops}
+
+    def expected(counts):
+        """Launches of the served kernels for ``counts[arm name]``
+        requests: flash once per attention layer per request, decode once
+        per attention layer per generated token, ssd_scan once per mamba2
+        layer per request."""
+        want = dict.fromkeys(served_ops, 0)
+        for model in arms:
+            n, L = counts.get(model.name, 0), model.cfg.num_layers
+            if model.cfg.arch_type == "ssm":
+                want["ssd_scan"] += n * L
+            else:
+                want["flash_attention"] += n * L
+                want["decode_attention"] += n * L * SERVE_NEW_TOKENS
+        return want
+
+    for mod in served_ops.values():
+        mod.LAUNCHES[0] = 0
+    for model in arms:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out = model.generate(
@@ -764,16 +866,15 @@ def main() -> int:
         assert ((0 <= out) & (out < model.cfg.vocab_size)).all()
         print(f"[serve] {model.name} first generate {out.tolist()} in "
               f"{time.perf_counter() - t0:.3f} s")
-    flash_ops.LAUNCHES[0] = 0
-    decode_ops.LAUNCHES[0] = 0
+    first = {k: mod.LAUNCHES[0] for k, mod in served_ops.items()}
+    assert first == expected({m.name: 1 for m in arms}), first
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = serve_requests(server, stream)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches.update(flash_attention=flash_ops.LAUNCHES[0],
-                    decode_attention=decode_ops.LAUNCHES[0])
-    traffic = {m.name: 0 for m in server.models[:len(ARMS)]}
+    launches.update({k: mod.LAUNCHES[0] for k, mod in served_ops.items()})
+    traffic = {m.name: 0 for m in arms}
     for r in results:
         traffic[r.model] += 1
         assert r.tokens_out == SERVE_NEW_TOKENS
@@ -787,21 +888,23 @@ def main() -> int:
           f"{reward:.4f}, cost {cost:.4e}/req ({cost / SERVE_BUDGET:.4f} of "
           f"the ceiling), traffic {traffic}, lambda {lam:.6f}, route p50 "
           f"{m['route_p50_us']:.1f} us/decision")
-    print(f"[serve] attention kernel launches on the served path: "
-          f"flash_attention {launches['flash_attention']}, decode_attention "
-          f"{launches['decode_attention']}")
-    for name in ("flash_attention", "decode_attention"):
+    served_launches = {k: launches[k] - first[k] for k in served_ops}
+    print(f"[serve] served-kernel launches: first generates {first}; the "
+          f"24 requests {served_launches}, expected from the traffic "
+          f"{expected(traffic)}")
+    assert served_launches == expected(traffic), served_launches
+    for name in served_ops:
         assert launches[name] > 0, f"{name} was not launched on the path"
 
     # Phase 8: teacher-forced logits, kernel route against plain route.
-    # In bf16, as served, the two routes' attention outputs differ by a
-    # bf16 ulp here and there (summation order) and random-weight layers
+    # In bf16, as served, the two routes' kernel outputs differ by a bf16
+    # ulp here and there (summation order) and random-weight layers
     # amplify that with depth, so the bf16 run is reported; the check
     # that fails the run is the same comparison with f32 activations
     # (weights cast at use), held to the bf16 tolerance. Every arm is
     # reported before a miss fails the run.
     missed = []
-    for model in server.models[:len(ARMS)]:
+    for model in arms:
         for dtype in ("bfloat16", "float32"):
             err, ok, ok32, agree, plain_err = teacher_forced(
                 model, stream[0]["prompt"], dtype)
@@ -816,15 +919,15 @@ def main() -> int:
     assert not missed, f"kernel route and plain route disagree: {missed}"
 
     # Phase 9: where one served request's time goes, per arm.
-    for model in server.models[:len(ARMS)]:
+    for model in arms:
         t = trace_request(model, stream[0]["prompt"])
         print(f"[trace] {model.name} one request: prefill "
               f"{t['prefill_ms']:.3f} ms host clock, one decode token "
               f"{t['token_ms']:.3f} ms; whole request (prefill + "
               f"{SERVE_NEW_TOKENS} tokens) {t['request_ms']:.3f} ms, device "
               f"busy {t['busy_ms']:.3f} ms in {t['kernels']} kernels (idle "
-              f"share {t['idle_share']:.4f}), attention kernels "
-              f"{t['attention_ms']:.3f} ms ({t['attention_share']:.4f} of "
+              f"share {t['idle_share']:.4f}), ported kernels "
+              f"{t['ported_ms']:.3f} ms ({t['ported_share']:.4f} of "
               f"device time)")
 
     def entry(name, source, replaces, checks, n):
@@ -851,7 +954,13 @@ def main() -> int:
               "src/repro_torch/kernels/csrc/decode_attention.cu",
               "src/repro/kernels/decode_attention/kernel.py:23",
               decode_checks, launches["decode_attention"]),
+        entry("ssd_scan", "src/repro_torch/kernels/csrc/ssd_scan.cu",
+              "src/repro/kernels/ssd_scan/kernel.py:21", ssd_checks,
+              launches["ssd_scan"]),
     ]
+    for k in kernels:
+        if k["name"] in served_launches:
+            k["launches_served"] = served_launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -4,7 +4,7 @@ NVIDIA H100.
 A second package beside the JAX reference (``repro``), mirroring its
 layout: ``core/`` holds Algorithm 1 (types, PRNG, LinUCB, pacer, router,
 backends, warm start, registry, simulator, evaluation harness, state
-publication), ``models/`` and ``configs/`` the dense served models,
+publication), ``models/`` and ``configs/`` the served models (dense and SSM),
 ``serving/`` the portfolio server and its gateway, and ``kernels/`` the
 hand-written CUDA kernels with their plain PyTorch versions. Every ``RouterState`` leaf carries a leading state axis
 ``(S, ...)``: the JAX package ``vmap``s one state over seeds, the port

@@ -1,7 +1,7 @@
-"""Architecture registry of the port: the dense architectures it serves.
-``get_config(id)`` / ``get_smoke(id)`` as in the JAX package; the JAX
-package's other architectures raise ``NotImplementedError`` until their
-family is ported.
+"""Architecture registry of the port: the dense and SSM architectures it
+serves. ``get_config(id)`` / ``get_smoke(id)`` as in the JAX package; the
+JAX package's other architectures raise ``NotImplementedError`` until
+their family is ported.
 """
 from __future__ import annotations
 
@@ -10,16 +10,17 @@ from typing import List
 
 from repro_torch.models.config import ModelConfig
 
-# arch id -> module name (the dense family)
+# arch id -> module name (the dense and SSM families)
 ARCH_MODULES = {
     "deepseek-7b": "deepseek_7b",
     "olmo-1b": "olmo_1b",
+    "mamba2-370m": "mamba2_370m",
     "deepseek-67b": "deepseek_67b",
     "command-r-35b": "command_r_35b",
 }
 
 # The JAX package's architectures of families the port does not run yet.
-NOT_PORTED = ("mamba2-370m", "zamba2-2.7b", "dbrx-132b",
+NOT_PORTED = ("zamba2-2.7b", "dbrx-132b",
               "phi-3-vision-4.2b", "whisper-medium",
               "llama4-maverick-400b-a17b")
 

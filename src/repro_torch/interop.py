@@ -145,16 +145,24 @@ def params_to_numpy(params) -> dict:
     return {k: params_to_numpy(v) for k, v in params.items()}
 
 
+_CACHE_FIELDS = ("k", "v", "ssm_conv", "ssm_h")
+
+
 def caches_from_numpy(caches, device) -> DecodeCaches:
-    """The port's ``DecodeCaches`` from a JAX dense-family ``DecodeCaches``
-    (its ``k``, ``v`` and scalar ``pos``)."""
+    """The port's ``DecodeCaches`` from a JAX ``DecodeCaches`` of the dense
+    family (``k``, ``v``) or the SSM family (``ssm_conv``, ``ssm_h``), and
+    its scalar ``pos``; the absent stacks stay None."""
     def tensor(name):
-        return torch.as_tensor(np.array(_get(caches, name)), device=device)
-    return DecodeCaches(k=tensor("k"), v=tensor("v"),
+        a = _get(caches, name)
+        return None if a is None else torch.as_tensor(np.array(a),
+                                                      device=device)
+    return DecodeCaches(**{n: tensor(n) for n in _CACHE_FIELDS},
                         pos=int(np.asarray(_get(caches, "pos"))))
 
 
 def caches_to_numpy(caches: DecodeCaches) -> dict:
-    return {"k": caches.k.detach().float().cpu().numpy(),
-            "v": caches.v.detach().float().cpu().numpy(),
-            "pos": np.int32(caches.pos)}
+    """The caches' present stacks as f32 numpy arrays, and ``pos``."""
+    out = {n: getattr(caches, n).detach().float().cpu().numpy()
+           for n in _CACHE_FIELDS if getattr(caches, n) is not None}
+    out["pos"] = np.int32(caches.pos)
+    return out

@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the port: the router's two (``linucb_score``,
-``linucb_step``) and the served models' two (``flash_attention``,
-``decode_attention``).
+``linucb_step``) and the served models' three (``flash_attention``,
+``decode_attention``, ``ssd_scan``).
 
 Each kernel package holds ``ref.py`` (the plain PyTorch version),
 ``kernel.py`` (the launch of the compiled CUDA kernel) and ``ops.py`` (the

@@ -107,7 +107,7 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call), with the argument
     types of every entry point declared: pointers and the stream as
     ``c_void_p``, sizes, modes and dtype codes as ``c_int``, the attention
-    scale as ``c_float``."""
+    scale as ``c_float``, tensor strides as ``c_longlong``."""
     global _LIB
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
@@ -121,5 +121,8 @@ def library() -> ctypes.CDLL:
         lib.flash_attention_launch.restype = I
         lib.decode_attention_launch.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
         lib.decode_attention_launch.restype = I
+        LL = ctypes.c_longlong
+        lib.ssd_scan_launch.argtypes = [P] * 8 + [I] * 6 + [LL] * 6 + [I, P]
+        lib.ssd_scan_launch.restype = I
         _LIB = lib
     return _LIB

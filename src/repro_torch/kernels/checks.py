@@ -13,6 +13,11 @@ MAX_HD = 128
 MAX_G = 64
 MAX_G_HD = 2048
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
+# Compile-time limits of csrc/ssd_scan.cu (kMaxQ, kMaxN) and the types its
+# x / B / C operands take (dt, A and D are f32).
+MAX_SSD_CHUNK = 128
+MAX_SSD_N = 128
+SSD_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def on_cpu(*tensors) -> bool:
@@ -52,6 +57,42 @@ def attention_operands(name: str, hd: int, H: int, KV: int,
     if dtype not in ATTN_DTYPES:
         raise TypeError(f"{name}: kernel takes {ATTN_DTYPES}; got {dtype}")
     _check(name, dtype, operands)
+
+
+def ssd_operands(name: str, chunk: int, *, x, dt, A, B_in, C_in,
+                 D_skip) -> None:
+    """Raise unless the SSD scan's operands are CUDA tensors on one device
+    that the kernel takes: x (B, L, H, P) and B_in / C_in (B, L, N) of one
+    dtype in ``SSD_DTYPES`` whose rows are unit-stride (x's (H, P) rows
+    contiguous; batch and row strides are free, so views of one
+    projection pass), dt (B, L, H), A and D_skip (H,) contiguous f32, and
+    1 <= chunk <= MAX_SSD_CHUNK, 1 <= N <= MAX_SSD_N."""
+    Bb, L, H, P = x.shape
+    N = B_in.shape[-1]
+    if not (1 <= chunk <= MAX_SSD_CHUNK and 1 <= N <= MAX_SSD_N):
+        raise ValueError(f"{name}: kernel takes 1 <= chunk <= "
+                         f"{MAX_SSD_CHUNK} and 1 <= N <= {MAX_SSD_N}; got "
+                         f"chunk={chunk}, N={N}")
+    if x.dtype not in SSD_DTYPES:
+        raise TypeError(f"{name}: kernel takes x in {SSD_DTYPES}; got "
+                        f"{x.dtype}")
+    _check(name, torch.float32, dict(
+        dt=(dt, (Bb, L, H)), A=(A, (H,)), D_skip=(D_skip, (H,))))
+    for key, t, shape in (("x", x, (Bb, L, H, P)), ("B_in", B_in, (Bb, L, N)),
+                          ("C_in", C_in, (Bb, L, N))):
+        if t.device != dt.device:
+            raise ValueError(f"{name}: {key} on {t.device}, expected "
+                             f"{dt.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}, expected "
+                            f"{x.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, "
+                             f"expected {shape}")
+        inner = (P, 1) if t is x else (1,)
+        if tuple(t.stride())[2:] != inner:
+            raise ValueError(f"{name}: {key}'s rows are not unit-stride "
+                             f"(strides {tuple(t.stride())})")
 
 
 def _check(name: str, default_dtype, operands) -> None:

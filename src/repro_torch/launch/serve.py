@@ -1,6 +1,6 @@
 """Serving driver: ``python -m repro_torch.launch.serve [--requests N]``.
 
-Stands up a ParetoBandit-routed portfolio of (SMOKE-sized) dense
+Stands up a ParetoBandit-routed portfolio of (SMOKE-sized)
 architectures, one budget, one mid and one frontier arm, each priced from
 its FULL architecture, and streams synthetic requests through the closed
 loop via the serving gateway: requests enter in admission windows of
@@ -9,16 +9,15 @@ loop via the serving gateway: requests enter in admission windows of
 telemetry (Prometheus text with ``--prom``). Runs on ``--device``
 (default ``cuda``; ``cpu`` runs every kernel's plain version).
 
-The JAX driver's default trio is olmo-1b, mamba2-370m, deepseek-67b. The
-SSM family (mamba2-370m) is not ported yet, so the middle arm here is
-deepseek-7b. ``--snapshot`` and ``--dry-run`` are not ported yet and
+The default trio is the JAX driver's: olmo-1b, mamba2-370m (an SSM),
+deepseek-67b. ``--snapshot`` and ``--dry-run`` are not ported yet and
 raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import argparse
 
-DEFAULT_ARCHS = ("olmo-1b", "deepseek-7b", "deepseek-67b")
+DEFAULT_ARCHS = ("olmo-1b", "mamba2-370m", "deepseek-67b")
 
 
 def main(argv=None):
@@ -27,8 +26,7 @@ def main(argv=None):
     ap.add_argument("--budget", type=float, default=6.6e-4)
     ap.add_argument("--arch", action="append", default=None,
                     help="portfolio member (repeatable); default "
-                    f"{', '.join(DEFAULT_ARCHS)} (the JAX driver's middle "
-                    "arm, mamba2-370m, is an SSM and not ported yet)")
+                    f"{', '.join(DEFAULT_ARCHS)}")
     ap.add_argument("--window", type=int, default=8,
                     help="micro-batch admission window size")
     ap.add_argument("--publish-every", type=int, default=1,

@@ -1,19 +1,20 @@
-"""Model assembly for the dense decoder family.
+"""Model assembly for the dense decoder and SSM (Mamba2) families.
 
 Parameters are nested dicts of tensors with per-layer leaves stacked on
 axis 0, the JAX package's tree; its ``lax.scan`` over layers is a loop
 over that axis here. Entry points:
 
   * ``prefill_forward`` — one full-sequence pass that emits the decode
-    caches (roped K/V in ring-buffer layout) and last-token logits: the
-    serving path.
+    caches (roped K/V in ring-buffer layout, or the SSM conv windows and
+    states) and last-token logits: the serving path.
   * ``prefill``         — the token-by-token oracle through ``decode_step``.
   * ``decode_step``     — one token against the caches.
 
-``impl`` selects the attention route (``models/attention.py``); None is
-the CUDA kernels on the card and the plain route on the CPU. The MoE,
-SSM, hybrid, encoder-decoder and VLM families, and fp8 KV caches, are not
-ported yet: they raise ``NotImplementedError``.
+``impl`` selects the attention route (``models/attention.py``) and the
+SSD scan's (``models/ssm.py``); None is the CUDA kernels on the card and
+the plain route on the CPU. The MoE, hybrid, encoder-decoder and VLM
+families, and fp8 KV caches, are not ported yet: they raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -22,17 +23,18 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, ssm
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 
 
-def _dense_only(cfg: ModelConfig) -> None:
-    if cfg.arch_type != "dense" or cfg.is_encdec or cfg.frontend_tokens:
+def _check_ported(cfg: ModelConfig) -> None:
+    if (cfg.arch_type not in ("dense", "ssm") or cfg.is_encdec
+            or cfg.frontend_tokens):
         raise NotImplementedError(
             f"{cfg.name}: arch_type={cfg.arch_type!r} is not ported yet; "
-            "the PyTorch port serves the dense family")
+            "the PyTorch port serves the dense and SSM families")
     if cfg.kv_dtype and cfg.kv_dtype != cfg.dtype:
         raise NotImplementedError(
             f"{cfg.name}: kv_dtype={cfg.kv_dtype!r} (a KV cache in another "
@@ -50,7 +52,7 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     storage dtype: f32 master weights as in the JAX package, or the
     config's compute dtype for serving, which gives the values JAX's cast
     at use gives."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(device=device, dtype=dtype)
@@ -61,6 +63,12 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, D, cfg.vocab_size, **kw)
+    if cfg.arch_type == "ssm":
+        params["blocks"] = {
+            "ln1": layers.init_norm(cfg.norm, D, lead=L, **kw),
+            "mixer": ssm.init_mamba2(gen, cfg, lead=L, **kw),
+        }
+        return params
     params["blocks"] = {
         "ln1": layers.init_norm(cfg.norm, D, lead=L, **kw),
         "attn": attention.init_attention(gen, cfg, lead=L, **kw),
@@ -104,14 +112,26 @@ def _apply_attn_block(p, cfg: ModelConfig, x, positions, impl,
     return x + layers.apply_mlp(cfg.mlp, p["mlp"], h)
 
 
+def _apply_ssm_block(p, cfg: ModelConfig, x, impl):
+    """The block and its decode state (the scan computes the state in
+    every route, so it is returned whether or not the caller keeps it)."""
+    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    y, st = ssm.mamba2_forward(p["mixer"], cfg, h, return_state=True,
+                               impl=impl)
+    return x + y, st
+
+
 def decoder_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
                   impl: Optional[str] = None):
     """The decoder blocks over a full sequence. Returns (x, aux); aux is
-    the MoE load-balance loss, 0 for the dense family."""
-    _dense_only(cfg)
+    the MoE load-balance loss, 0 for the dense and SSM families."""
+    _check_ported(cfg)
     for i in range(cfg.num_layers):
-        x = _apply_attn_block(_layer(params["blocks"], i), cfg, x,
-                              positions, impl)
+        p = _layer(params["blocks"], i)
+        if cfg.arch_type == "ssm":
+            x, _ = _apply_ssm_block(p, cfg, x, impl)
+        else:
+            x = _apply_attn_block(p, cfg, x, positions, impl)
     return x, torch.zeros((), device=x.device)
 
 
@@ -142,13 +162,16 @@ def _place_kv(ks: Tensor, W: int, S: int) -> Tensor:
 # ---------------------------------------------------------------------------
 
 class DecodeCaches(NamedTuple):
-    """Decode state of the dense family. ``decode_step`` writes the new
-    token's K/V into ``k``/``v`` in place and returns the caches with
-    ``pos`` advanced. The JAX package's SSM, secondary and cross-attention
+    """Decode state: the attention stack's K/V (dense family) or the SSM
+    stack's conv windows and states (SSM family); the other pair is None.
+    ``decode_step`` updates them in place and returns the caches with
+    ``pos`` advanced. The JAX package's secondary and cross-attention
     stacks belong to families this port does not run yet."""
-    k: Tensor      # (L, B, W, KV, hd)
-    v: Tensor
-    pos: int       # next absolute position
+    k: Optional[Tensor]                # (L, B, W, KV, hd)
+    v: Optional[Tensor]
+    pos: int                           # next absolute position
+    ssm_conv: Optional[Tensor] = None  # (L, B, cw-1, d_in + 2N), KV dtype
+    ssm_h: Optional[Tensor] = None     # (L, B, H, N, P) f32
 
 
 def cache_window(cfg: ModelConfig, seq_len: int) -> int:
@@ -157,10 +180,17 @@ def cache_window(cfg: ModelConfig, seq_len: int) -> int:
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
                 device=None) -> DecodeCaches:
-    _dense_only(cfg)
+    _check_ported(cfg)
+    kw = dict(dtype=cfg.kv_torch_dtype, device=resolve_device(device))
+    if cfg.arch_type == "ssm":
+        st = ssm.init_ssm_state(cfg, batch, **kw)
+        n = cfg.num_layers
+        return DecodeCaches(
+            k=None, v=None, pos=0,
+            ssm_conv=st.conv.new_zeros((n,) + st.conv.shape),
+            ssm_h=st.h.new_zeros((n,) + st.h.shape))
     W = cache_window(cfg, seq_len)
     shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.hd)
-    kw = dict(dtype=cfg.kv_torch_dtype, device=resolve_device(device))
     return DecodeCaches(torch.zeros(shape, **kw), torch.zeros(shape, **kw), 0)
 
 
@@ -173,16 +203,28 @@ def _decode_attn_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl):
     return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), kc, vc
 
 
+def _decode_ssm_block(p, cfg: ModelConfig, x, state: ssm.SSMState):
+    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    y, state = ssm.mamba2_decode(p["mixer"], cfg, h, state)
+    return x + y, state
+
+
 def decode_step(params, cfg: ModelConfig, token: Tensor,
                 caches: DecodeCaches, impl: Optional[str] = None):
     """One serve step: token (B, 1) -> f32 logits (B, V), caches (updated
     in place, ``pos`` advanced)."""
-    _dense_only(cfg)
+    _check_ported(cfg)
     x = _embed(params, cfg, token)                           # (B, 1, D)
     for i in range(cfg.num_layers):
-        x, _, _ = _decode_attn_block(_layer(params["blocks"], i), cfg, x,
-                                     caches.k[i], caches.v[i], caches.pos,
-                                     impl)
+        p = _layer(params["blocks"], i)
+        if cfg.arch_type == "ssm":
+            x, st = _decode_ssm_block(p, cfg, x, ssm.SSMState(
+                caches.ssm_conv[i], caches.ssm_h[i]))
+            caches.ssm_conv[i].copy_(st.conv)
+            caches.ssm_h[i].copy_(st.h)
+        else:
+            x, _, _ = _decode_attn_block(p, cfg, x, caches.k[i], caches.v[i],
+                                         caches.pos, impl)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x[:, 0]), caches._replace(pos=caches.pos + 1)
 
@@ -204,20 +246,31 @@ def prefill_forward(params, cfg: ModelConfig, tokens: Tensor, *,
                     cache_len: Optional[int] = None,
                     impl: Optional[str] = None):
     """Batched prefill: one full-sequence pass that emits the decode
-    caches (roped per-layer K/V in ring-buffer layout) and the last
-    token's f32 logits (B, V)."""
-    _dense_only(cfg)
+    caches (roped per-layer K/V in ring-buffer layout, or the SSM stack's
+    conv windows and states) and the last token's f32 logits (B, V)."""
+    _check_ported(cfg)
     x = _embed(params, cfg, tokens)
     S = x.shape[1]
-    positions = torch.arange(S, device=x.device)
-    W = cache_window(cfg, cache_len or S)
-    ks, vs = [], []
-    for i in range(cfg.num_layers):
-        x, (k, v) = _apply_attn_block_kv(_layer(params["blocks"], i), cfg, x,
-                                         positions, impl)
-        ks.append(k)
-        vs.append(v)
+    if cfg.arch_type == "ssm":
+        convs, hs = [], []
+        for i in range(cfg.num_layers):
+            x, st = _apply_ssm_block(_layer(params["blocks"], i), cfg, x,
+                                     impl)
+            convs.append(st.conv)
+            hs.append(st.h)
+        caches = DecodeCaches(k=None, v=None, pos=S,
+                              ssm_conv=torch.stack(convs),
+                              ssm_h=torch.stack(hs))
+    else:
+        positions = torch.arange(S, device=x.device)
+        W = cache_window(cfg, cache_len or S)
+        ks, vs = [], []
+        for i in range(cfg.num_layers):
+            x, (k, v) = _apply_attn_block_kv(_layer(params["blocks"], i),
+                                             cfg, x, positions, impl)
+            ks.append(k)
+            vs.append(v)
+        caches = DecodeCaches(k=_place_kv(torch.stack(ks), W, S),
+                              v=_place_kv(torch.stack(vs), W, S), pos=S)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    caches = DecodeCaches(k=_place_kv(torch.stack(ks), W, S),
-                          v=_place_kv(torch.stack(vs), W, S), pos=S)
     return _logits(params, cfg, x[:, -1]), caches

@@ -1,7 +1,7 @@
 """The port's CUDA kernels on the card: each against its plain version,
-and the fused closed loop against the torch oracle. Marked ``cuda``;
-without a GPU every test skips (the decision is taken inside the
-fixture, never at import). On a machine with a card:
+the fused closed loop against the torch oracle, and the served
+portfolio. Marked ``cuda``; without a GPU every test skips (the decision
+is taken inside the fixture, never at import). On a machine with a card:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py -q
 """
@@ -154,19 +154,52 @@ def test_decode_kernel_matches_plain(dev, dtype, B, W, H, KV, hd, pos,
     torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
 
 
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dtype,tol", [
+    (1, 32, 32, 64, 128, 128, torch.bfloat16, 0.08),   # a served prompt
+    (1, 128, 32, 64, 128, 128, torch.bfloat16, 0.08),  # the longest one
+    (1, 2048, 32, 64, 128, 128, torch.bfloat16, 0.08),  # 16 chunks
+    (2, 40, 4, 8, 16, 16, torch.float32, 2e-4),         # ragged L
+])
+def test_ssd_kernel_matches_plain(dev, B, L, H, P, N, chunk, dtype, tol):
+    """The kernel against its plain version on the model's layout: x, B
+    and C as views of one (B, L, H P + 2 N) projection, as mamba2_forward
+    passes them. Tolerance: the JAX SSD tests' 2e-4 (f32) and 0.08
+    (bf16 inputs)."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    g = torch.Generator(device=dev).manual_seed(L + P)
+    xBC = torch.randn((B, L, H * P + 2 * N), generator=g, device=dev,
+                      dtype=dtype)
+    xs, Bi, Ci = torch.split(xBC, [H * P, N, N], dim=-1)
+    x = xs.reshape(B, L, H, P)
+    dt = torch.rand((B, L, H), generator=g, device=dev) * 0.099 + 0.001
+    A = -(torch.rand((H,), generator=g, device=dev) * 3.5 + 0.5)
+    D = torch.randn((H,), generator=g, device=dev)
+    n = ssd_ops.LAUNCHES[0]
+    y, h = ssd_ops.ssd_scan(x, dt, A, Bi, Ci, D, chunk=chunk)
+    assert ssd_ops.LAUNCHES[0] == n + 1
+    y_ref, h_ref = ssd_scan_ref(x, dt, A, Bi, Ci, D, chunk=chunk)
+    assert y.dtype == dtype and h.dtype == torch.float32
+    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(h, h_ref, rtol=tol, atol=tol)
+
+
 def test_portfolio_serves_on_card(dev):
-    """A 3-arm SMOKE portfolio served on the card through the kernels:
-    every request generates, both attention kernels launch, and the
-    kernel route's prefill logits agree with the plain route's."""
+    """The JAX driver's trio as a SMOKE portfolio served on the card
+    through the kernels: every request generates, both attention kernels
+    and the SSD scan launch, and the kernel route's prefill logits agree
+    with the plain route's."""
     from repro_torch import configs
     from repro_torch.core.costs import price_from_active_params
     from repro_torch.core.features import fit_pca_whitener, hash_encode_batch
     from repro_torch.data import make_request_stream
     from repro_torch.kernels.decode_attention import ops as da_ops
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
     from repro_torch.serving import PortfolioServer, ServedModel
 
-    arms = ("olmo-1b", "deepseek-7b", "deepseek-67b")
+    arms = ("olmo-1b", "mamba2-370m", "deepseek-67b")
     models = [ServedModel.init(
         configs.get_smoke(a),
         price_from_active_params(a, configs.get_config(a).active_params(),
@@ -178,10 +211,12 @@ def test_portfolio_serves_on_card(dev):
     srv = PortfolioServer(models, fit_pca_whitener(hash_encode_batch(corpus),
                                                    device=dev),
                           budget=6.6e-4, max_new_tokens=4, device=dev)
-    fa0, da0 = fa_ops.LAUNCHES[0], da_ops.LAUNCHES[0]
+    fa0, da0, ssd0 = (fa_ops.LAUNCHES[0], da_ops.LAUNCHES[0],
+                      ssd_ops.LAUNCHES[0])
     res = srv.serve_batch(make_request_stream(8, seed=11))
     assert len(res) == 8 and all(r.tokens_out == 4 for r in res)
     assert fa_ops.LAUNCHES[0] > fa0 and da_ops.LAUNCHES[0] > da0
+    assert ssd_ops.LAUNCHES[0] > ssd0
     from repro_torch.models import prefill_forward
 
     toks = torch.arange(2, 34, device=dev)[None]

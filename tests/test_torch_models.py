@@ -1,12 +1,15 @@
-"""The port's dense models against the JAX package's, on the CPU in f32.
+"""The port's dense and SSM models against the JAX package's, on the CPU
+in f32.
 
 JAX's ``init_model`` weights are carried across (``interop``), then the
-layers, ``prefill_forward`` (logits and ring-buffer caches) and N
-``decode_step``s are compared with JAX running its ``chunked`` route and
-its ``pallas`` route (the Pallas kernels in interpret mode). The port runs
-its ``cuda`` route, which on CPU tensors is the kernels' plain versions,
-and its ``chunked`` route. Tolerance: 1e-4 rtol and atol, the bar of
-``tests/test_models.py``'s decode-consistency test; layers 2e-6.
+layers, ``prefill_forward`` (logits and the caches: ring-buffer K/V, or
+the SSM conv windows and states) and N ``decode_step``s are compared with
+JAX running its ``chunked`` route and its ``pallas`` route (the Pallas
+attention kernels in interpret mode; JAX's SSM prefill runs
+``ssd_chunked`` on both). The port runs its ``cuda`` route, which on CPU
+tensors is the kernels' plain versions, and its ``chunked`` route.
+Tolerance: 1e-4 rtol and atol, the bar of ``tests/test_models.py``'s
+decode-consistency test; layers 2e-6.
 """
 import dataclasses
 
@@ -122,6 +125,33 @@ def test_interop_round_trip():
     assert int(out["pos"]) == 20
 
 
+def test_interop_round_trip_ssm():
+    """An SSM tree (``blocks.mixer.*``) and SSM caches (``ssm_conv``,
+    ``ssm_h``; ``k``/``v`` None) both ways; decoding from the carried
+    caches matches JAX's."""
+    cfg = configs.get_smoke("mamba2-370m")
+    jcfg = jconfigs.get_smoke("mamba2-370m")
+    jp = jax.tree.map(np.asarray, jinit_model(jax.random.PRNGKey(4), jcfg))
+    p = interop.params_from_numpy(jp, cfg, "cpu")
+    assert set(p["blocks"]["mixer"]) == set(jp["blocks"]["mixer"])
+    back = interop.params_to_numpy(p)
+    assert jax.tree.structure(back) == jax.tree.structure(jp)
+    for a, b in zip(jax.tree.leaves(back), jax.tree.leaves(jp)):
+        np.testing.assert_array_equal(a, b)
+    toks = jnp.asarray(np.arange(2, 21, dtype=np.int32)[None])
+    _, jc = jprefill_forward(jp, jcfg, toks)
+    c = interop.caches_from_numpy(jc, "cpu")
+    assert c.k is None and c.v is None and c.pos == 19
+    out = interop.caches_to_numpy(c)
+    assert set(out) == {"ssm_conv", "ssm_h", "pos"}
+    np.testing.assert_array_equal(out["ssm_conv"], np.asarray(jc.ssm_conv))
+    np.testing.assert_array_equal(out["ssm_h"], np.asarray(jc.ssm_h))
+    jl, _ = jdecode_step(jp, jcfg, toks[:, :1], jc)
+    logits, c = decode_step(p, cfg, _t(toks[:, :1]), c)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
+    assert c.pos == 20
+
+
 # ---------------------------------------------------------------------------
 # prefill / decode against JAX
 # ---------------------------------------------------------------------------
@@ -134,7 +164,20 @@ MODELS = {
     "olmo-1b": lambda: jconfigs.get_smoke("olmo-1b"),            # MHA, tied
     "deepseek-67b": lambda: jconfigs.get_smoke("deepseek-67b"),  # GQA G = 4
     "sliding": lambda: _sliding(jconfigs.get_smoke("deepseek-7b")),  # W < S
+    "mamba2-370m": lambda: jconfigs.get_smoke("mamba2-370m"),    # SSM, Q 16
 }
+
+
+def _assert_caches_close(got, want):
+    """Every cache stack the JAX caches hold (K/V, or SSM conv windows
+    and states) and ``pos``."""
+    for n in ("k", "v", "ssm_conv", "ssm_h"):
+        w = getattr(want, n)
+        assert (getattr(got, n) is None) == (w is None), n
+        if w is not None:
+            np.testing.assert_allclose(getattr(got, n).numpy(),
+                                       np.asarray(w), **TOL)
+    assert got.pos == int(want.pos)
 
 
 def _pair(name, seed=0):
@@ -155,18 +198,18 @@ def _tokens(cfg, B=2, S=20, seed=0):
 def test_prefill_and_decode_match_jax(name, jimpl):
     """prefill_forward's logits and caches, then 4 decode steps fed with
     JAX's greedy tokens; the sliding variant's W = 8 < S = 20 exercises
-    _place_kv's ring placement and, in decode, a wrapped ring."""
+    _place_kv's ring placement and, in decode, a wrapped ring. For the
+    SSM, S = 20 is not a multiple of the 16-row chunk."""
     jcfg, jp, cfg, p = _pair(name)
     toks = _tokens(cfg)
     jl, jc = jprefill_forward(jp, jcfg, jnp.asarray(toks), cache_len=26,
                               impl=jimpl)
+    assert int(jc.pos) == 20
     for impl in ("cuda", "chunked"):
         logits, c = prefill_forward(p, cfg, _t(toks), cache_len=26,
                                     impl=impl)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
-        np.testing.assert_allclose(c.k.numpy(), np.asarray(jc.k), **TOL)
-        np.testing.assert_allclose(c.v.numpy(), np.asarray(jc.v), **TOL)
-        assert c.pos == int(jc.pos) == 20
+        _assert_caches_close(c, jc)
     if name == "sliding":
         assert c.k.shape[2] == 8
     logits, c = prefill_forward(p, cfg, _t(toks), cache_len=26)  # default
@@ -176,22 +219,26 @@ def test_prefill_and_decode_match_jax(name, jimpl):
         logits, c = decode_step(p, cfg, _t(jcur), c)
         np.testing.assert_allclose(logits.numpy(), np.asarray(jl), **TOL)
         jcur = jnp.argmax(jl, -1)[:, None].astype(jnp.int32)
-    np.testing.assert_allclose(c.k.numpy(), np.asarray(jc.k), **TOL)
-    assert c.pos == int(jc.pos) == 24
+    _assert_caches_close(c, jc)
+    assert c.pos == 24
 
 
-@pytest.mark.parametrize("name", ["deepseek-67b", "sliding"])
+@pytest.mark.parametrize("name", ["deepseek-67b", "sliding", "mamba2-370m"])
 def test_prefill_forward_matches_token_by_token(name):
     """The batched prefill against the port's own decode_step oracle, on
-    the port's own random weights."""
+    the port's own random weights (S = 19: a ragged SSM chunk)."""
     cfg = ModelConfig(**dataclasses.asdict(MODELS[name]()))
     p = init_model(cfg, seed=3, device="cpu")
     toks = _t(_tokens(cfg, S=19, seed=3))
     l1, c1 = prefill_forward(p, cfg, toks, cache_len=23)
     l2, c2 = prefill(p, cfg, toks, cache_len=23)
     np.testing.assert_allclose(l1.numpy(), l2.numpy(), **TOL)
-    np.testing.assert_allclose(c1.k.numpy(), c2.k.numpy(), **TOL)
-    np.testing.assert_allclose(c1.v.numpy(), c2.v.numpy(), **TOL)
+    for n in ("k", "v", "ssm_conv", "ssm_h"):
+        a, b = getattr(c1, n), getattr(c2, n)
+        assert (a is None) == (b is None) == (n in (
+            ("k", "v") if cfg.arch_type == "ssm" else ("ssm_conv", "ssm_h")))
+        if a is not None:
+            np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
     assert c1.pos == c2.pos == 19
     cur = l1.argmax(-1)[:, None]
     a, _ = decode_step(p, cfg, cur, c1)
@@ -201,7 +248,6 @@ def test_prefill_forward_matches_token_by_token(name):
 
 @pytest.mark.parametrize("arch_type,extra", [
     ("moe", dict(num_experts=4, experts_per_token=2)),
-    ("ssm", dict(ssm_state=16)),
     ("hybrid", dict(ssm_state=16, shared_attn_every=2)),
     ("vlm", dict(frontend_tokens=4, frontend_dim=32)),
     ("audio", dict(encoder_layers=2, encoder_seq=8)),
@@ -217,7 +263,7 @@ def test_unported_families_raise(arch_type, extra):
         init_caches(cfg, 1, 8, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["mamba2-370m", "zamba2-2.7b", "dbrx-132b",
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "dbrx-132b",
                                   "whisper-medium"])
 def test_unported_archs_raise(arch):
     assert arch in jconfigs.ARCH_IDS

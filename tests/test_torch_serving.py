@@ -41,7 +41,7 @@ from repro_torch.serving.sampler import sample_token  # noqa: E402
 from repro_torch.serving.telemetry import Telemetry  # noqa: E402
 from repro_torch.serving.tokenizer import HashTokenizer  # noqa: E402
 
-ARCHS = ("olmo-1b", "deepseek-7b", "deepseek-67b")
+ARCHS = ("olmo-1b", "mamba2-370m", "deepseek-67b")   # the JAX driver's trio
 TIERS = ("budget", "mid", "frontier")
 # Per-request prices near the realised cost of a ~16-token request, and a
 # budget below the cheapest, so the pacer binds and lambda moves; alpha
@@ -309,7 +309,7 @@ def test_serve_driver_on_cpu(capsys):
                 "--prom"])
     out = capsys.readouterr().out
     assert "served 8 requests" in out and "traffic:" in out
-    assert "arm 1: deepseek-7b" in out
+    assert "arm 1: mamba2-370m" in out
     assert "decisions_total 8" in out.replace("paretobandit_", "")
     with pytest.raises(NotImplementedError):
         serve.main(["--dry-run"])
