@@ -2,7 +2,9 @@
 
 Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects are linked into one shared library
-with a plain C interface, loaded with ``ctypes``. The library lives in
+with a plain C interface (and ``libdl``, through which the attention
+kernel finds libcuda's ``cuTensorMapEncodeTiled``), loaded with
+``ctypes``. The library lives in
 ``build/kernels/<hash>/`` at the root of the checkout, keyed by a hash of
 the sources and flags, so a fresh checkout builds it on its first kernel
 call and later calls reuse it.
@@ -81,7 +83,8 @@ def build() -> Path:
             failed.append(src.name)
     if not failed:
         link = subprocess.run(
-            [nvcc, ARCH, "-shared", "-o", str(tmp / LIB_NAME), *objs],
+            [nvcc, ARCH, "-shared", "-o", str(tmp / LIB_NAME), *objs,
+             "-ldl"],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         log.append(f"== link (rc={link.returncode})\n{link.stdout}")
         if link.returncode != 0:
@@ -119,7 +122,9 @@ def library() -> ctypes.CDLL:
         F = ctypes.c_float
         lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 8 + [F, I, P]
         lib.flash_attention_launch.restype = I
-        lib.decode_attention_launch.argtypes = [P] * 5 + [I] * 5 + [F, I, P]
+        lib.flash_attention_tc_launch.argtypes = [P] * 4 + [I] * 8 + [F, P]
+        lib.flash_attention_tc_launch.restype = I
+        lib.decode_attention_launch.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
         lib.decode_attention_launch.restype = I
         LL = ctypes.c_longlong
         lib.ssd_scan_launch.argtypes = [P] * 8 + [I] * 6 + [LL] * 6 + [I, P]

@@ -59,6 +59,15 @@ def attention_operands(name: str, hd: int, H: int, KV: int,
     _check(name, dtype, operands)
 
 
+def aligned16(name: str, **tensors) -> None:
+    """Raise unless every tensor's data starts on a 16-byte boundary, as a
+    TMA tensor map's base address must."""
+    for key, t in tensors.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key}'s data is not 16-byte aligned "
+                             f"(storage offset {t.storage_offset()})")
+
+
 def ssd_operands(name: str, chunk: int, *, x, dt, A, B_in, C_in,
                  D_skip) -> None:
     """Raise unless the SSD scan's operands are CUDA tensors on one device

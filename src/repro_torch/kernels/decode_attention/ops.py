@@ -1,17 +1,22 @@
-"""Wrapper of the decode attention kernel.
+"""Wrapper of the decode attention kernels.
 
 On CPU tensors it runs the plain version (``ref.py``); on CUDA tensors it
-checks the operands and launches the CUDA kernel, or raises.
+checks the operands, plans the split over the cache
+(``kernel.split_plan``), allocates the output and the partials'
+workspace, and launches the CUDA kernels, or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import checks
-from repro_torch.kernels.decode_attention.kernel import decode_attention_bkv
+from repro_torch.kernels.decode_attention.kernel import (
+    decode_attention_bkv, sm_count, split_plan,
+)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Calls of the op on CUDA tensors since import (or since a caller reset it
+# to 0): one per call, whether it launches one kernel or two.
 LAUNCHES = [0]
 
 
@@ -24,9 +29,10 @@ def decode_attention(q, k_cache, v_cache, valid):
 
 
 def _launch(q, k_cache, v_cache, valid):
-    """The CUDA path: check the operands, allocate the output, launch the
-    kernel on the current stream and count the launch. The kernel masks
-    the ragged last tile of the cache itself, so nothing is padded."""
+    """The CUDA path: check the operands, plan the split, allocate the
+    output and (with more than one split) the f32 partials, launch on the
+    current stream and count the call. The kernels mask the ragged last
+    tile of the cache themselves, so nothing is padded."""
     B, _, H, hd = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
     checks.attention_operands(
@@ -38,8 +44,15 @@ def _launch(q, k_cache, v_cache, valid):
         raise ValueError(f"decode_attention: kernel takes G <= {checks.MAX_G}"
                          f" and G * hd <= {checks.MAX_G_HD}; got G={G}, "
                          f"hd={hd}")
+    n_split, per = split_plan(B, W, KV, sm_count(q.device.index or 0))
     out = torch.empty_like(q)
-    decode_attention_bkv(q, k_cache, v_cache, valid, out,
+    part_acc = part_ml = None
+    if n_split > 1:
+        f32 = dict(dtype=torch.float32, device=q.device)
+        part_acc = torch.empty((B, KV, n_split, G, hd), **f32)
+        part_ml = torch.empty((B, KV, n_split, G, 2), **f32)
+    decode_attention_bkv(q, k_cache, v_cache, valid, out, part_acc, part_ml,
+                         n_split=n_split, tiles_per_split=per,
                          scale=1.0 / hd ** 0.5)
     LAUNCHES[0] += 1
     return out

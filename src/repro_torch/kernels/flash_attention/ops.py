@@ -1,7 +1,7 @@
-"""Wrapper of the prefill attention kernel.
+"""Wrapper of the prefill attention kernels.
 
 On CPU tensors it runs the plain version (``ref.py``); on CUDA tensors it
-checks the operands and launches the CUDA kernel, or raises. As the JAX
+checks the operands and launches a CUDA kernel, or raises. As the JAX
 op, it assumes positions 0..S-1 and 0..T-1 (the JAX op takes and ignores
 ``q_pos``/``k_pos``; this one does not take them).
 """
@@ -11,12 +11,14 @@ import torch
 
 from repro_torch.kernels import checks
 from repro_torch.kernels.flash_attention.kernel import (
-    MODES, flash_attention_bshd,
+    MODES, ROUTES, flash_attention_bshd, route,
 )
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset it to 0), and the
+# same launches by route (``kernel.route``).
 LAUNCHES = [0]
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0):
@@ -30,8 +32,8 @@ def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0):
 
 def _launch(q, k, v, mode, window):
     """The CUDA path: check the operands, allocate the output, launch the
-    kernel on the current stream and count the launch. The kernel masks
-    ragged query and key tiles itself, so nothing is padded."""
+    kernel on the current stream and count the launch. The kernels mask
+    ragged query and key tiles themselves, so nothing is padded."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     checks.attention_operands("flash_attention", hd, H, KV,
@@ -41,8 +43,10 @@ def _launch(q, k, v, mode, window):
         raise ValueError(f"flash_attention: sliding mode needs window >= 1, "
                          f"got {window}")
     out = torch.empty_like(q)
-    flash_attention_bshd(q, k, v, out, mode=mode, window=int(window),
-                         scale=1.0 / hd ** 0.5)
+    if route(q.dtype, hd) == "tensor_cores":
+        checks.aligned16("flash_attention", q=q, k=k, v=v, out=out)
+    which = flash_attention_bshd(q, k, v, out, mode=mode, window=int(window),
+                                 scale=1.0 / hd ** 0.5)
     LAUNCHES[0] += 1
+    ROUTE_LAUNCHES[which] += 1
     return out
-

@@ -112,34 +112,81 @@ def test_select_batch_score_backend_on_card(dev):
 
 ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
+# Each output row's max error against that row's RMS (chip_smoke.py's
+# ATTN_ROW_REL_TOL): random inputs give long rows an RMS below the
+# absolute tolerance, where a dropped tile or split would still pass it.
+ATTN_ROW_REL_TOL = {torch.float32: 1e-3, torch.bfloat16: 0.1}
+
+
+def assert_attn_close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    diff = (got.float() - want.float()).abs().amax(-1)
+    rel = diff / want.float().pow(2).mean(-1).sqrt()
+    assert float(rel.max()) <= ATTN_ROW_REL_TOL[dtype], float(rel.max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,H,KV,hd,mode,window", [
     (1, 33, 4, 4, 64, "causal", 0), (2, 100, 8, 2, 32, "sliding", 17),
-    (1, 64, 8, 1, 128, "full", 0), (2, 130, 6, 3, 48, "causal", 0)])
+    (1, 64, 8, 1, 128, "full", 0), (2, 130, 6, 3, 48, "causal", 0),
+    # the served prefills (olmo-1b, deepseek-67b: G = 8 on KV = 8)
+    (1, 32, 16, 16, 128, "causal", 0), (1, 32, 64, 8, 128, "causal", 0),
+    # ragged query tiles around the 128-row tile, hd 48 / 64 / 128
+    (1, 1, 8, 8, 128, "causal", 0), (1, 127, 16, 16, 64, "causal", 0),
+    (1, 128, 8, 2, 48, "causal", 0), (2, 129, 8, 8, 128, "causal", 0),
+    (1, 300, 64, 8, 128, "causal", 0),
+    # windows that cross tile edges
+    (1, 300, 8, 2, 64, "sliding", 1), (1, 300, 8, 2, 128, "sliding", 63),
+    (2, 300, 8, 2, 128, "sliding", 130),
+    # full mode, T not a multiple of the 64-key tile
+    (1, 100, 4, 2, 48, "full", 0), (2, 129, 8, 8, 128, "full", 0),
+    # hd % 8 != 0: bf16 takes the FP32 FMA route
+    (1, 40, 4, 2, 36, "causal", 0)])
 def test_flash_kernel_matches_plain(dev, dtype, B, S, H, KV, hd, mode,
                                     window):
+    """Each route against the plain version; bf16 with hd % 8 == 0 must
+    take the tensor cores, everything else the FP32 FMA kernel."""
     from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import route
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
     g = torch.Generator(device=dev).manual_seed(S + hd)
     q, k, v = (torch.randn(s, generator=g, device=dev, dtype=dtype)
                for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd)))
-    n = fa_ops.LAUNCHES[0]
+    which = route(dtype, hd)
+    assert (which == "tensor_cores") == (dtype == torch.bfloat16
+                                         and hd % 8 == 0)
+    n, n_route = fa_ops.LAUNCHES[0], fa_ops.ROUTE_LAUNCHES[which]
     got = fa_ops.flash_attention(q, k, v, mode=mode, window=window)
     assert fa_ops.LAUNCHES[0] == n + 1
+    assert fa_ops.ROUTE_LAUNCHES[which] == n_route + 1
     want = flash_attention_ref(q, k, v, mode=mode, window=window)
-    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert_attn_close(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,W,H,KV,hd,pos,window", [
     (1, 40, 4, 4, 64, 33, 0), (2, 136, 8, 2, 128, 130, 0),
-    (1, 300, 16, 2, 32, 1000, 100)])
+    (1, 300, 16, 2, 32, 1000, 100),
+    # the served tokens: olmo-1b G = 1, deepseek-67b G = 8
+    (1, 40, 16, 16, 128, 39, 0), (1, 40, 64, 8, 128, 39, 0),
+    # whole splits invalid next to valid ones
+    (1, 4096, 64, 8, 128, 5000, 3000),
+    (3, 200, 6, 3, 48, 150, 0),
+    # bf16 off the tensor cores (hd % 16 != 0): rows that are not 16-byte
+    # multiples (hd 36) and rows that are (hd 24)
+    (1, 40, 4, 2, 36, 33, 0), (2, 100, 8, 4, 24, 90, 0)])
 def test_decode_kernel_matches_plain(dev, dtype, B, W, H, KV, hd, pos,
                                      window):
+    """The op (its own split plan) and the kernels at n_split = 1, 2 and
+    one split per tile, against the plain version, on both of the split
+    kernel's paths (bf16 with hd % 16 == 0 on the tensor cores, K / V
+    staged by cp.async; everything else element by element on FP32
+    FMAs)."""
     from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        TILE, decode_attention_bkv, sm_count, split_plan,
+    )
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.models.attention import ring_valid
 
@@ -151,7 +198,20 @@ def test_decode_kernel_matches_plain(dev, dtype, B, W, H, KV, hd, pos,
     got = da_ops.decode_attention(q, kc, vc, valid)
     assert da_ops.LAUNCHES[0] == n + 1
     want = decode_attention_ref(q, kc, vc, valid)
-    torch.testing.assert_close(got.float(), want.float(), **ATTN_TOL[dtype])
+    assert_attn_close(got, want, dtype)
+    tiles = -(-W // TILE)
+    plans = {split_plan(B, W, KV, sm_count(dev.index or 0)), (1, tiles),
+             (tiles, 1), (-(-tiles // -(-tiles // 2)), -(-tiles // 2))}
+    G = H // KV
+    for n_split, per in sorted(plans):
+        ws = (None, None)
+        if n_split > 1:
+            ws = (torch.empty((B, KV, n_split, G, hd), device=dev),
+                  torch.empty((B, KV, n_split, G, 2), device=dev))
+        out = torch.empty_like(q)
+        decode_attention_bkv(q, kc, vc, valid, out, *ws, n_split=n_split,
+                             tiles_per_split=per, scale=1.0 / hd ** 0.5)
+        assert_attn_close(out, want, dtype)
 
 
 @pytest.mark.parametrize("B,L,H,P,N,chunk,dtype,tol", [
