@@ -5,14 +5,18 @@
 
 Builds the CUDA kernels from src/repro_torch/kernels/csrc (into
 build/kernels/ at first use) and lists each kernel's registers and spills
-(a spill in the attention kernels fails the run), then:
+(a spill in the attention or LinUCB kernels fails the run), then:
 
   1. prints the card, its power limit and the torch / CUDA versions, and
      turns TF32 off for matrix products and convolutions;
   2. holds each kernel against its plain PyTorch version on the card at
      the main path's shapes and at the largest supported shape (K = 8,
      d = 128), and times kernel, plain version and (for the scoring
-     kernel) one einsum expression computing the same scores;
+     kernel) the library forms computing the same scores: CUDA events
+     around one call, the kernels' own device time under torch.profiler
+     (device_ms) and a CUDA graph of 20 calls (graph_ms); each step check
+     names its route (one launch for B = 1, score + update chained by
+     programmatic dependent launch above) and its busiest arm;
   3. drives the main path at the paper's configuration: make_benchmark
      (1,824 test prompts), fitted priors, RouterConfig() (d = 26, 8 slots,
      3 active, backend "fused"), 20 seeds, n_eff = 1164, evaluate.run at
@@ -20,7 +24,8 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      (compliance within (0.9, 1.10) at 3.0e-4 request by request), then
      select-only serving of a 256-request block through the scoring
      kernel; the kernels' launch counters are zeroed just before and read
-     just after, and each kernel must have been launched;
+     just after, and each kernel, and each route of linucb_step, must
+     have been launched;
   4. runs both block runs and the per-request run at 3.0e-4 on the
      "torch" oracle backend: arm agreement >= 0.99 and mean reward within
      1e-3;
@@ -29,10 +34,11 @@ build/kernels/ at first use) and lists each kernel's registers and spills
   6. holds the two attention kernels (flash_attention, decode_attention)
      against their plain versions at the served shapes first (olmo-1b's
      and deepseek-67b's 32-token prefills and their decode tokens at
-     W = 40), then at longer ones (bf16) and at ragged f32 shapes, and
-     times kernel, plain version and torch's scaled_dot_product_attention
-     on the same inputs (CUDA events around one call, and the device time
-     of the kernels alone under torch.profiler); then the
+     W = 40), then at longer ones (bf16), at ragged f32 shapes and (decode)
+     a row with no valid slot, whose output is the mean of V, and times
+     kernel, plain version and torch's scaled_dot_product_attention on the
+     same inputs (CUDA events around one call, device_ms and graph_ms);
+     then the
      SSD scan (ssd_scan) at mamba2-370m's served shapes (the 24 requests'
      prompts pad to 32 tokens, one chunk of 32 rows; the longest prompt
      the server keeps is 128, one full chunk), at 16 chunks (bf16) and at
@@ -127,13 +133,16 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 10) -> float:
+def device_ms(fn, reps: int = 10):
     """Device time of one call of ``fn``: the durations of the CUDA
     kernels it launches, summed under torch.profiler over ``reps`` calls
     (after one warm-up call) and divided by ``reps``. Unlike CUDA events
     around one call, it leaves out the host's launch time. A profile that
     comes back without device events (CUPTI now and then delivers none)
-    is taken again, up to three times."""
+    is taken again, up to three times; after that the time is not
+    measured (None). CUPTI on the card's machine also undercounts some
+    long kernels at times (PERF.md §7), so ``graph_ms`` stands beside
+    it."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -148,7 +157,35 @@ def device_ms(fn, reps: int = 10) -> float:
                    if e.device_type == torch.autograd.DeviceType.CUDA]
         if kernels:
             return sum(e.time_range.elapsed_us() for e in kernels) / reps / 1e3
-    raise AssertionError("the profiler recorded no device kernel")
+    print("[profile] three profiles without device events: device_ms not "
+          "measured", file=sys.stderr)
+    return None
+
+
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Time of one call of ``fn`` on the device, without CUPTI: ``calls``
+    calls captured in one CUDA graph, replayed ``replays`` times between
+    two CUDA events, divided by calls x replays. The host launches one
+    graph, so this is the device's time for the calls back to back
+    (with the gaps between graph nodes), a check on ``device_ms``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (calls * replays)
 
 
 def host_ms(fns, reps: int = 7):
@@ -170,9 +207,10 @@ def host_ms(fns, reps: int = 7):
 
 
 def device_profile(fn):
-    """(device busy ms, device kernels, ms of linucb_step's kernels) of
-    one call of ``fn`` under torch.profiler: the sum of every CUDA kernel's
-    duration on the device."""
+    """(device busy ms, device kernels, ms of linucb_step's kernels: its
+    scoring launch and its update launch) of one call of ``fn`` under
+    torch.profiler: the sum of every CUDA kernel's duration on the
+    device."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,7 +223,8 @@ def device_profile(fn):
     assert kernels, "the profiler recorded no device kernel"
     us = lambda es: sum(e.time_range.elapsed_us() for e in es)  # noqa: E731
     ours = [e for e in kernels
-            if "select_kernel" in e.name or "update_kernel" in e.name]
+            if "linucb_score_kernel" in e.name
+            or "linucb_update_kernel" in e.name]
     return us(kernels) / 1e3, len(kernels), us(ours) / 1e3
 
 
@@ -223,6 +262,11 @@ def build_report(log: str):
                 if t.group(2):
                     args.append(("fma", "mma")[int(t.group(2))])
                 name += "<" + ", ".join(args) + ">"
+            # <DP> of linucb_score_kernel, <threads, lanes per row> of
+            # linucb_update_kernel.
+            t = re.search(name + r"I((?:Li\d+E)+)E", mangled)
+            if t:
+                name += "<" + ", ".join(re.findall(r"\d+", t.group(1))) + ">"
         elif "registers" in line:
             print(f"[build]   {name}: {line.split(':', 1)[1].strip()}")
         elif "spill" in line:
@@ -233,7 +277,7 @@ def build_report(log: str):
 
 
 # Every kernel the library holds, by the name in its source.
-KERNEL_NAMES = ("score_kernel", "select_kernel", "update_kernel",
+KERNEL_NAMES = ("linucb_score_kernel", "linucb_update_kernel",
                 "flash_wgmma_kernel", "flash_kernel", "decode_split_kernel",
                 "decode_combine_kernel", "ssd_kernel")
 
@@ -291,14 +335,25 @@ def check_score(rng, S, R, K, d):
         library[name] = cuda_ms(fn)
     library_form = min(library, key=library.get)
     library_ms = library[library_form]
+    dev_ms = device_ms(lambda: linucb_score_blocked(*args, out))
+    g_ms = graph_ms(lambda: linucb_score_blocked(*args, out))
+    library_dev = {name: device_ms(fn) for name, fn in forms.items()}
+    measured = {k: v for k, v in library_dev.items() if v is not None}
+    library_dev_form = min(measured, key=measured.get) if measured else None
+    library_graph = {name: graph_ms(fn) for name, fn in forms.items()}
     nbytes = 4 * (S * R * d + S * K * d + S * K * d * d + 2 * S * K + S
                   + S * R * K)
     flops = 2 * S * R * K * d * d + 2 * S * R * K * d
     bms, by = bound(nbytes, flops)
     return dict(shape=dict(S=S, R=R, K=K, d=d), max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, library_ms=library_ms,
-                library_form=library_form, library_all_ms=library,
-                bound_ms=bms, bound_by=by)
+                device_ms=dev_ms, graph_ms=g_ms, plain_ms=plain_ms,
+                library_ms=library_ms, library_form=library_form,
+                library_all_ms=library,
+                library_device_ms=measured.get(library_dev_form),
+                library_device_form=library_dev_form,
+                library_all_device_ms=library_dev,
+                library_graph_ms=min(library_graph.values()),
+                library_all_graph_ms=library_graph, bound_ms=bms, bound_by=by)
 
 
 def check_step(rng, S, B, K, d):
@@ -312,7 +367,9 @@ def check_step(rng, S, B, K, d):
     import torch
 
     from repro_torch.kernels.linucb_step import ops
-    from repro_torch.kernels.linucb_step.kernel import linucb_step_blocked
+    from repro_torch.kernels.linucb_step.kernel import (
+        linucb_step_blocked, route, scores_workspace,
+    )
     from repro_torch.kernels.linucb_step.ref import linucb_step_ref
 
     dev = "cuda"
@@ -364,6 +421,8 @@ def check_step(rng, S, B, K, d):
         assert bool((diff <= atol + 1e-4 * w.double().abs()).all()), (
             f"linucb_step {n} differs at {(S, B, K, d)}: {float(diff.max())}")
         err = max(err, float(diff.max()))
+    busiest = max(int(torch.bincount(a, minlength=K).max())
+                  for a in want[5].long())
     lam, c_ema = want[8], want[9]
     assert bool(((lam > lam0) & (lam < lbar)).all()), (
         f"lam left (lam0, lambda_bar) or did not move: {lam}")
@@ -371,8 +430,12 @@ def check_step(rng, S, B, K, d):
                 and (c_ema != cema0).all()), f"c_ema did not bind: {c_ema}"
     # Time the kernel alone into the outputs just checked, and the plain
     # version on the same operands on the card.
-    ms = cuda_ms(lambda: linucb_step_blocked(ins, got, num_valid=B,
-                                             dt_max=4096))
+    ws = scores_workspace(S, B, K, dev)
+    run = lambda: linucb_step_blocked(ins, got, ws, num_valid=B,  # noqa: E731
+                                      dt_max=4096)
+    ms = cuda_ms(run)
+    dev_ms = device_ms(run)
+    g_ms = graph_ms(run)
     plain_ms = cuda_ms(lambda: linucb_step_ref(*ins, num_valid=B,
                                                dt_max=4096), reps=5)
     # Bytes: each operand read once, each output written once (f32 / i32
@@ -386,10 +449,11 @@ def check_step(rng, S, B, K, d):
     flops = S * (2 * B * K * d * d + B * (9 * d * d + 3 * d)
                  + 2 * K * d * d)
     bms, by = bound(nbytes, flops)
-    return dict(shape=dict(S=S, B=B, K=K, d=d), max_abs_err=err,
-                lam=[float(lam.min()), float(lam.max())], ms=ms,
-                plain_ms=plain_ms, library_ms=None, bound_ms=bms,
-                bound_by=by)
+    return dict(shape=dict(S=S, B=B, K=K, d=d), route=route(B),
+                busiest_arm=busiest, max_abs_err=err, lam=[float(lam.min()), float(lam.max())],
+                ms=ms, device_ms=dev_ms, graph_ms=g_ms, plain_ms=plain_ms,
+                library_ms=None,
+                bound_ms=bms, bound_by=by)
 
 
 def _attn_err(got, want, dtype_name):
@@ -457,7 +521,10 @@ def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
     library_ms = cuda_ms(lib)
     dev_ms = device_ms(lambda: flash_attention_bshd(
         q, k, v, out, mode=mode, window=window, scale=scale))
+    g_ms = graph_ms(lambda: flash_attention_bshd(
+        q, k, v, out, mode=mode, window=window, scale=scale))
     library_dev_ms = device_ms(lib)
+    library_g_ms = graph_ms(lib)
     # Operations over the (q, k) pairs the mask keeps (positions 0..S-1
     # against 0..S-1): whatever tiles a kernel visits, these inputs need
     # no more.
@@ -472,8 +539,10 @@ def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
     bms, by = bound(nbytes, flops, peak)
     return dict(shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=name,
                            mode=mode, window=window),
-                route=route, max_abs_err=err, row_rel_err=rel, ms=ms, device_ms=dev_ms,
-                library_device_ms=library_dev_ms, plain_ms=plain_ms,
+                route=route, max_abs_err=err, row_rel_err=rel, ms=ms,
+                device_ms=dev_ms, graph_ms=g_ms,
+                library_device_ms=library_dev_ms,
+                library_graph_ms=library_g_ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_err=lib_err, bound_ms=bms,
                 bound_by=by, flops=flops, bytes=nbytes,
                 peak="bf16 tensor cores" if peak == BF16_FLOP_PER_S
@@ -483,7 +552,10 @@ def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
 def check_decode(gen, B, W, H, KV, hd, dtype, pos, window=0):
     """decode_attention against its plain version: one token at absolute
     position ``pos`` against a W-slot ring (wrapped once pos >= W, and
-    inside ``window`` when given)."""
+    inside ``window`` when given). ``pos=None`` makes a row with no valid
+    slot, whose output is the mean of V (the plain version, as JAX's
+    reference); SDPA has no such answer, so that check times no library
+    call."""
     import torch
     import torch.nn.functional as F
 
@@ -497,7 +569,8 @@ def check_decode(gen, B, W, H, KV, hd, dtype, pos, window=0):
     mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda",  # noqa: E731
                                     dtype=dtype)
     q, kc, vc = mk(B, 1, H, hd), mk(B, W, KV, hd), mk(B, W, KV, hd)
-    valid = ring_valid(pos, W, window, "cuda")
+    valid = (torch.zeros(W, dtype=torch.bool, device="cuda") if pos is None
+             else ring_valid(pos, W, window, "cuda"))
     nv = int(valid.sum())
     name = str(dtype).split(".")[1]
     got = ops.decode_attention(q, kc, vc, valid)
@@ -518,27 +591,37 @@ def check_decode(gen, B, W, H, KV, hd, dtype, pos, window=0):
         q, kc, vc, valid, out, *ws, n_split=n_split, tiles_per_split=per,
         scale=1.0 / hd ** 0.5))
     plain_ms = cuda_ms(lambda: decode_attention_ref(q, kc, vc, valid))
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
-    lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
-        qt, kt, vt, attn_mask=valid.view(1, 1, 1, W), enable_gqa=True)
-    lib_err, lib_ok = _attn_err(lib().transpose(1, 2), want, name)
-    assert lib_ok, f"library attention disagrees: {lib_err}"
-    library_ms = cuda_ms(lib)
     dev_ms = device_ms(lambda: decode_attention_bkv(
         q, kc, vc, valid, out, *ws, n_split=n_split, tiles_per_split=per,
         scale=1.0 / hd ** 0.5))
-    library_dev_ms = device_ms(lib)
+    g_ms = graph_ms(lambda: decode_attention_bkv(
+        q, kc, vc, valid, out, *ws, n_split=n_split, tiles_per_split=per,
+        scale=1.0 / hd ** 0.5))
+    library_ms = library_dev_ms = lib_err = None
+    if nv:
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, kc, vc))
+        lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            qt, kt, vt, attn_mask=valid.view(1, 1, 1, W), enable_gqa=True)
+        lib_err, lib_ok = _attn_err(lib().transpose(1, 2), want, name)
+        assert lib_ok, f"library attention disagrees: {lib_err}"
+        library_ms = cuda_ms(lib)
+        library_dev_ms = device_ms(lib)
     # What this run's data needs: the valid slots' K and V once, q, o and
-    # the (W,) mask; 4 operations per (head, valid slot, hd).
+    # the (W,) mask; 4 operations per (head, valid slot, hd). A row with
+    # no valid slot needs V once and one addition per element of it.
     es = q.element_size()
     nbytes = es * (2 * B * nv * KV * hd + 2 * B * H * hd) + W
     flops = 4 * B * H * nv * hd
+    if not nv:
+        nbytes += es * B * W * KV * hd
+        flops = B * W * KV * hd
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     bms, by = bound(nbytes, flops, peak)
     return dict(shape=dict(B=B, W=W, H=H, KV=KV, hd=hd, dtype=name, pos=pos,
                            window=window, valid=nv),
                 n_split=n_split, tiles_per_split=per, blocks=n_split * B * KV,
-                device_ms=dev_ms, library_device_ms=library_dev_ms,
+                device_ms=dev_ms, graph_ms=g_ms,
+                library_device_ms=library_dev_ms,
                 max_abs_err=err, row_rel_err=rel, ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, library_err=lib_err, bound_ms=bms,
                 bound_by=by, flops=flops, bytes=nbytes)
@@ -578,6 +661,8 @@ def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
             f"max abs err {errs[-1]}")
     y, h = torch.empty_like(got[0]), torch.empty_like(got[1])
     ms = cuda_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
+    dev_ms = device_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
+    g_ms = graph_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
     plain_ms = cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk),
                        reps=5 if L > 512 else 20)
     # Bytes: x, B, C, y in the input dtype, dt, A, D and h_final in f32,
@@ -597,7 +682,8 @@ def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
     return dict(shape=dict(B=B, L=L, H=H, P=P, N=N, dtype=name,
                            chunk=chunk),
                 max_abs_err=max(errs), max_abs_err_y=errs[0],
-                max_abs_err_h=errs[1], ms=ms, plain_ms=plain_ms,
+                max_abs_err_h=errs[1], ms=ms, device_ms=dev_ms, graph_ms=g_ms,
+                plain_ms=plain_ms,
                 library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
                 bytes=nbytes)
 
@@ -811,7 +897,8 @@ def main() -> int:
     lib = build.build()
     print(f"[build] {lib.parent.name} in {time.perf_counter() - t0:.1f} s")
     spills = [k for k in build_report(build.build_log())
-              if k.startswith(("flash_wgmma", "decode_split", "decode_comb"))]
+              if k.startswith(("flash_wgmma", "decode_split", "decode_comb",
+                               "linucb_"))]
     assert not spills, f"register spills in {spills}"
 
     # Phase 2: each kernel against its plain version on the card.
@@ -838,6 +925,8 @@ def main() -> int:
 
     score_ops.LAUNCHES[0] = 0
     step_ops.LAUNCHES[0] = 0
+    for r in step_ops.ROUTE_LAUNCHES:
+        step_ops.ROUTE_LAUNCHES[r] = 0
     runs = {}
     for bs in (256, None):
         for budget in BUDGETS:
@@ -871,9 +960,16 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = {"linucb_score": score_ops.LAUNCHES[0],
                 "linucb_step": step_ops.LAUNCHES[0]}
-    print(f"[main] kernel launches on the main path: {launches}")
+    print(f"[main] kernel launches on the main path: {launches}; "
+          f"linucb_step by route: {step_ops.ROUTE_LAUNCHES}")
     for name, n in launches.items():
         assert n > 0, f"{name} was not launched on the main path"
+    # Blocks of 256 take the chained route, the per-request runs the
+    # single launch.
+    step_routes = dict(step_ops.ROUTE_LAUNCHES)
+    assert sum(step_routes.values()) == launches["linucb_step"]
+    for r, n in step_routes.items():
+        assert n > 0, f"linucb_step's {r} route was not taken"
 
     # Phase 4: the oracle on the card, for both block runs and for the
     # per-request run at the tight budget.
@@ -916,7 +1012,7 @@ def main() -> int:
               f"PRNG chain alone {chain_ms:.3f} ms "
               f"({chain_ms / block_ms:.3f} of the block); device busy "
               f"{busy_ms:.3f} ms in {n_kernels} kernels (idle share "
-              f"{1 - busy_ms / block_ms:.4f}), linucb_step's two kernels "
+              f"{1 - busy_ms / block_ms:.4f}), linucb_step's kernels "
               f"{ours_ms:.3f} ms")
 
     # Phase 6: the served models' kernels against their plain versions.
@@ -944,6 +1040,8 @@ def main() -> int:
         check_decode(gen, 1, 136, 16, 16, 128, bf16, pos=130),
         check_decode(gen, 1, 4096, 64, 8, 128, bf16, pos=5000, window=3000),
         check_decode(gen, 2, 40, 8, 2, 32, f32, pos=35),
+        # a row with no valid slot: the mean of V, through the combine
+        check_decode(gen, 1, 1024, 16, 2, 128, bf16, pos=None),
     ]
     ssd_checks = [
         check_ssd(gen, 1, 32, 32, 64, 128, bf16),      # the served prompts
@@ -1023,10 +1121,10 @@ def main() -> int:
         assert launches[name] > 0, f"{name} was not launched on the path"
     # The served models are bf16 with hd = 128: every prefill must have
     # run on the tensor cores.
-    print(f"[serve] flash_attention launches by route: "
-          f"{flash_ops.ROUTE_LAUNCHES}")
-    assert flash_ops.ROUTE_LAUNCHES["tensor_cores"] == launches[
-        "flash_attention"], flash_ops.ROUTE_LAUNCHES
+    flash_routes = dict(flash_ops.ROUTE_LAUNCHES)
+    print(f"[serve] flash_attention launches by route: {flash_routes}")
+    assert flash_routes["tensor_cores"] == launches["flash_attention"], (
+        flash_routes)
 
     # Phase 8: teacher-forced logits, kernel route against plain route.
     # In bf16, as served, the two routes' kernel outputs differ by a bf16
@@ -1099,6 +1197,8 @@ def main() -> int:
     for k in kernels:
         if k["name"] in served_launches:
             k["launches_served"] = served_launches[k["name"]]
+    kernels[1]["launches_by_route"] = step_routes
+    kernels[2]["launches_by_route"] = flash_routes
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

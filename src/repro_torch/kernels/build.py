@@ -115,9 +115,9 @@ def library() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.linucb_score_launch.argtypes = [P] * 7 + [I] * 4 + [P]
+        lib.linucb_score_launch.argtypes = [P] * 7 + [I] * 5 + [P]
         lib.linucb_score_launch.restype = I
-        lib.linucb_step_launch.argtypes = [P] * 33 + [I] * 6 + [P]
+        lib.linucb_step_launch.argtypes = [P] * 34 + [I] * 7 + [P]
         lib.linucb_step_launch.restype = I
         F = ctypes.c_float
         lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 8 + [F, I, P]

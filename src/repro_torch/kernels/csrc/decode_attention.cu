@@ -11,8 +11,10 @@
 // Masked scores are -1e30 (finite) and the final division floors the
 // denominator at 1e-30, as on the TPU. A row with no valid slot at all,
 // which the model never produces (the current token's slot is valid),
-// gives 0 here: its tiles are all skipped. The TPU kernel gives the mean
-// of V there (every p = exp(0)).
+// gives the mean of V over the W slots of its kv head, as the TPU kernel
+// does (every score is -1e30, so every p = exp(0)). Its tiles are still
+// all skipped; the pass that writes the output sees no valid slot and
+// averages V instead (see Pass 2).
 //
 // What bounds it on the H100: bytes. The valid slots' K and V stream
 // through once per token for 4 * B * H * hd operations per valid slot:
@@ -49,7 +51,11 @@
 // Pass 2, decode_combine_kernel, one block per (g, kv head, b): rescales
 // each split's partial by exp(m_i - M), sums, and divides by
 // max(L, 1e-30). A split with no valid slot has m = -1e30 and contributes
-// exp(-1e30 - M) = 0 once any slot is valid. The wrapper chooses n_split
+// exp(-1e30 - M) = 0 once any slot is valid. When every split reports
+// m = -1e30 the row has no valid slot, and the combine writes the mean of
+// V over the W slots instead (with n_split = 1 pass 1 does the same in
+// its epilogue); the windowed path never takes that branch. The wrapper
+// chooses n_split
 // (kernel.split_plan): about two blocks per SM of the card when B * KV
 // is small, and at least one tile per split.
 #include <cstdint>
@@ -200,6 +206,17 @@ size_t max_smem_bytes() {
          sizeof(__nv_bfloat16) * kMaxG * kPStride;
 }
 
+// The mean over the W slots of column d of one kv head's V (rows
+// ``stride`` elements apart), in f32: the output of a row with no valid
+// slot, where every p = exp(0).
+template <typename T>
+__device__ float mean_v(const T* __restrict__ v, size_t stride, int W,
+                        int d) {
+  float s = 0.f;
+  for (int w = 0; w < W; ++w) s += attn::to_f32(v[w * stride + d]);
+  return s / static_cast<float>(W);
+}
+
 template <typename T, int kPath>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
@@ -277,6 +294,7 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
   };
 
   int t_cur = next_valid(valid, pre, t_begin, t_begin, t_end, W);
+  const bool empty = t_cur >= t_end;   // no valid slot in the split
   if (t_cur < t_end) issue(t_cur, 0);
   cp_async_commit();
   int t_nxt = t_cur < t_end
@@ -448,6 +466,13 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
 
+  // A row with no valid slot at all (n_split = 1 covers the whole ring):
+  // the mean of V over the W slots.
+  if (n_split == 1 && empty) {
+    for (int e = tid; e < n_out; e += kThreads)
+      o[head0 + e] = attn::from_f32<T>(mean_v(v + base, stride, W, e % hd));
+    return;
+  }
   // The output (n_split = 1) or this split's partial.
   const size_t part = (static_cast<size_t>(b) * KV + kvh) * n_split + split;
   auto put = [&](int e, float x) {
@@ -503,7 +528,9 @@ template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml,
-                      T* __restrict__ o, int KV, int G, int hd, int n_split) {
+                      const T* __restrict__ v,   // (B, W, KV, hd)
+                      T* __restrict__ o, int W, int KV, int G, int hd,
+                      int n_split) {
   __shared__ float sm[kMaxSplit], sw[kMaxSplit];
   const int g = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31;
@@ -519,6 +546,15 @@ decode_combine_kernel(const float* __restrict__ part_acc,
   float L = 0.f;
   for (int i = lane; i < n_split; i += 32) L += sw[i] * expf(sm[i] - M);
   L = attn::group_sum<32>(L);
+  if (M <= attn::kNegInf) {   // no split saw a valid slot: the mean of V
+    const size_t stride = static_cast<size_t>(KV) * hd;
+    if (tid < hd)
+      o[((static_cast<size_t>(b) * KV + kvh) * G + g) * hd + tid] =
+          attn::from_f32<T>(mean_v(v + static_cast<size_t>(b) * W * stride +
+                                       static_cast<size_t>(kvh) * hd,
+                                   stride, W, tid));
+    return;   // M is the same in every warp: the whole block returns
+  }
   __syncthreads();   // every warp has read sw as l
   for (int i = tid; i < n_split; i += kCombineThreads)
     sw[i] = expf(sm[i] - M);
@@ -570,7 +606,7 @@ int launch(const void* q, const void* k, const void* v, const void* valid,
   decode_combine_kernel<T><<<dim3(G, KV, B), kCombineThreads, 0,
                                     stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<T*>(o), KV, G, hd, n_split);
+      static_cast<const T*>(v), static_cast<T*>(o), W, KV, G, hd, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,8 +29,10 @@ def decode_attention_split_ref(q, k_cache, v_cache, valid, n_split: int,
     m (the max of its valid scores, -1e30 if it has none), l = sum of
     exp(s - m) and acc = sum of exp(s - m) v over its valid slots. The
     combine rescales each by exp(m_i - M) and divides by max(L, 1e-30).
-    Equal to ``decode_attention_ref`` wherever a slot is valid; a row with
-    no valid slot gives 0 (the kernel skips every tile)."""
+    Where every split has m = -1e30 the row has no valid slot, and the
+    combine gives the mean of V over the W slots, as
+    ``decode_attention_ref`` (every p = exp(0)); the kernel still skips
+    every tile of such a row."""
     B, _, H, hd = q.shape
     W, KV = k_cache.shape[1], k_cache.shape[2]
     q4 = q[:, 0].float().reshape(B, KV, H // KV, hd)
@@ -51,4 +53,6 @@ def decode_attention_split_ref(q, k_cache, v_cache, valid, n_split: int,
     L = sum(l_i * w_i for l_i, w_i in zip(ls, w))
     acc = sum(a_i * w_i for a_i, w_i in zip(accs, w))
     out = acc / torch.clamp_min(L, 1e-30)
+    mean = v_cache.float().mean(dim=1).reshape(B, KV, 1, hd)
+    out = torch.where(M <= NEG_INF, mean, out)
     return out.reshape(B, 1, H, hd).to(q.dtype)

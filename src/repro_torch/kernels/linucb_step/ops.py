@@ -10,11 +10,15 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import checks
-from repro_torch.kernels.linucb_step.kernel import linucb_step_blocked
+from repro_torch.kernels.linucb_step.kernel import (
+    ROUTES, linucb_step_blocked, route, scores_workspace,
+)
 from repro_torch.kernels.linucb_step.ref import linucb_step_ref
 
-# Kernel launches since import (or since a caller reset it to 0).
+# Kernel launches since import (or since a caller reset it to 0), and the
+# same by route (kernel.route: one launch for B <= 1, two chained above).
 LAUNCHES = [0]
+ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
 
 # Operand names in call order, and the dtypes that are not f32.
 OPERANDS = ("A", "A_inv", "b", "theta", "last_upd", "X", "rewards", "costs",
@@ -40,7 +44,8 @@ def linucb_step(*operands, dt_max: int = 4096):
 
 def _launch(ins, dt_max: int):
     """The CUDA path: check the 23 operands, allocate the 10 outputs,
-    launch the kernel on the current stream and count the launch. Every
+    launch the kernel on the current stream and count the launch and its
+    route. Every
     request row is real (num_valid = B) and the kernel takes any B and
     d <= 128, so nothing is padded."""
     A, _, b, _, last_upd, X = ins[:6]
@@ -63,6 +68,8 @@ def _launch(ins, dt_max: int):
             torch.empty((S, B), dtype=f32, device=X.device),
             torch.empty((S, B), dtype=f32, device=X.device),
             vec(), vec())
-    linucb_step_blocked(ins, outs, num_valid=B, dt_max=dt_max)
+    linucb_step_blocked(ins, outs, scores_workspace(S, B, K, X.device),
+                        num_valid=B, dt_max=dt_max)
     LAUNCHES[0] += 1
+    ROUTE_LAUNCHES[route(B)] += 1
     return outs

@@ -217,21 +217,49 @@ def test_decode_split_ref_matches_jax(B, W, H, KV, hd, pos, window):
 
 
 def test_decode_split_ref_without_valid_slot():
-    """A row with no valid slot, which the model never produces: the
-    kernels skip every tile and give 0; the one-pass version (and the TPU
-    kernel) give the mean of V."""
+    """A row with no valid slot, which the model never produces: the two
+    passes (at n_split 1, 3 and 5; the combine sees m = -1e30 from every
+    split) and the one-pass version give the mean of V over the W slots of
+    each kv head, as JAX's ``decode_attention_ref`` (every p = exp(0))."""
+    from repro.kernels.decode_attention.ref import (
+        decode_attention_ref as jref,
+    )
     from repro_torch.kernels.decode_attention.ref import (
         decode_attention_ref, decode_attention_split_ref,
     )
 
-    g = torch.Generator().manual_seed(0)
-    q, k, v = (torch.randn(s, generator=g)
+    rng = np.random.default_rng(0)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
                for s in ((1, 1, 4, 8), (1, 130, 2, 8), (1, 130, 2, 8)))
-    valid = torch.zeros(130, dtype=torch.bool)
-    got = decode_attention_split_ref(q, k, v, valid, 3, 1)
-    assert torch.equal(got, torch.zeros_like(got))
-    mean = v.mean(dim=1).repeat_interleave(2, dim=1)[:, None]
-    torch.testing.assert_close(decode_attention_ref(q, k, v, valid), mean)
+    valid = np.zeros(130, dtype=bool)
+    want = np.asarray(jref(q, k, v, jnp.asarray(valid)))
+    mean = v.mean(axis=1).repeat(2, axis=1)[:, None]
+    np.testing.assert_allclose(want, mean, **TOL)
+    tq, tk, tv, tval = map(torch.as_tensor, (q, k, v, valid))
+    for n_split, per in ((1, 3), (3, 1), (2, 2)):
+        got = decode_attention_split_ref(tq, tk, tv, tval, n_split, per)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    np.testing.assert_allclose(decode_attention_ref(tq, tk, tv, tval).numpy(),
+                               want, **TOL)
+
+
+def test_decode_without_valid_slot_matches_jax_op():
+    """The same at W = 512, one block of JAX's Pallas op (which pads W to
+    its 512-slot block, so only there do the op and the reference agree):
+    the two passes at several n_split against the op in interpret mode."""
+    from repro_torch.kernels.decode_attention.ref import (
+        decode_attention_split_ref,
+    )
+
+    rng = np.random.default_rng(1)
+    q, k, v = (rng.standard_normal(s).astype(np.float32)
+               for s in ((1, 1, 4, 8), (1, 512, 2, 8), (1, 512, 2, 8)))
+    valid = np.zeros(512, dtype=bool)
+    pallas = np.asarray(jdecode(q, k, v, jnp.asarray(valid)))
+    tq, tk, tv, tval = map(torch.as_tensor, (q, k, v, valid))
+    for n_split, per in ((1, 8), (4, 2), (8, 1)):
+        got = decode_attention_split_ref(tq, tk, tv, tval, n_split, per)
+        np.testing.assert_allclose(got.numpy(), pallas, **TOL)
 
 
 @pytest.mark.parametrize("dtype,hd,want", [

@@ -32,8 +32,12 @@ def _inv(rng, S, K, d):
     return np.linalg.inv(np.einsum("skij,sklj->skil", M, M) + np.eye(d) * 1.2)
 
 
-@pytest.mark.parametrize("S,R,K,d", [(1, 1, 1, 2), (3, 33, 3, 26),
-                                     (2, 300, 8, 128), (4, 7, 5, 13)])
+@pytest.mark.parametrize("S,R,K,d", [
+    (1, 1, 1, 2), (3, 33, 3, 26), (2, 300, 8, 128), (4, 7, 5, 13),
+    # every built width (DP 32 / 64 / 128) and its edges, K 1 / 3 / 8,
+    # R not a multiple of the 128-row tile, S > 1
+    (20, 256, 8, 26), (1, 4096, 8, 128), (2, 129, 1, 32), (3, 200, 3, 100),
+    (2, 130, 8, 33), (3, 127, 8, 64), (2, 257, 3, 65), (1, 1000, 1, 128)])
 def test_score_kernel_matches_plain(dev, S, R, K, d):
     rng = np.random.default_rng(S * R + d)
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
@@ -49,9 +53,20 @@ def test_score_kernel_matches_plain(dev, S, R, K, d):
                                atol=2e-5)
 
 
-@pytest.mark.parametrize("S,B,K,d", [(1, 1, 3, 8), (3, 13, 4, 26),
-                                     (2, 64, 8, 128)])
-def test_step_kernel_matches_plain(dev, S, B, K, d):
+@pytest.mark.parametrize("one_arm", [False, True])
+@pytest.mark.parametrize("S,B,K,d", [
+    (1, 1, 3, 8), (3, 13, 4, 26), (2, 64, 8, 128),
+    # B = 1 (the single launch) and B > 1 (score + update chained), both
+    # update layouts (one warp at d <= 32, 256 threads above), B past the
+    # 32- and 256-row request chunks
+    (20, 1, 8, 26), (4, 1, 8, 128), (5, 256, 8, 26), (2, 256, 8, 128),
+    (3, 300, 8, 26), (2, 300, 4, 128), (2, 40, 3, 33)])
+def test_step_kernel_matches_plain(dev, S, B, K, d, one_arm):
+    """Arms and last_upd exact, everything else within 1e-4, on each
+    route; with ``one_arm`` every request chooses arm 1 (the only
+    candidate), so the busiest arm takes the whole block's chain."""
+    from repro_torch.kernels.linucb_step.kernel import route
+
     rng = np.random.default_rng(B + d)
     f = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32,  # noqa: E731
                                   device=dev)
@@ -65,17 +80,24 @@ def test_step_kernel_matches_plain(dev, S, B, K, d):
             f(rng.standard_normal((S, B, d))), f(rng.uniform(0, 1, (S, B, K))),
             f(rng.uniform(0, 1e-3, (S, B, K))),
             f(rng.uniform(0, 1e-7, (S, B, K))),
-            torch.ones((S, K), dtype=torch.bool, device=dev),
+            torch.ones((S, K), dtype=torch.bool, device=dev)
+            if not one_arm else
+            (torch.arange(K, device=dev) == min(1, K - 1))[None]
+            .expand(S, K).contiguous(),
             f(rng.uniform(0, 0.5, (S, K))), f(rng.uniform(0.01, 1, (S, K))),
             vec(0.05), vec(0.997), vec(0.05), vec(0.05), vec(5.0),
             vec(0.2), vec(5e-4), vec(6.6e-4),
             torch.full((S,), 60, dtype=torch.int32, device=dev),
-            torch.zeros((S,), dtype=torch.int32, device=dev),
+            torch.full((S,), min(1, K - 1), dtype=torch.int32, device=dev),
             (torch.arange(B, device=dev) < 2)[None].expand(S, B).contiguous()]
-    n = step_ops.LAUNCHES[0]
+    n, which = step_ops.LAUNCHES[0], route(B)
+    n_route = step_ops.ROUTE_LAUNCHES[which]
     got = step_ops.linucb_step(*args)
     assert step_ops.LAUNCHES[0] == n + 1
+    assert step_ops.ROUTE_LAUNCHES[which] == n_route + 1
     want = step_ops.linucb_step(*(a.cpu() for a in args))
+    if one_arm:
+        assert bool((want[5] == min(1, K - 1)).all())
     for g, w in zip(got, want):
         if g.dtype == torch.int32:
             assert torch.equal(g.cpu(), w)
@@ -204,6 +226,42 @@ def test_decode_kernel_matches_plain(dev, dtype, B, W, H, KV, hd, pos,
              (tiles, 1), (-(-tiles // -(-tiles // 2)), -(-tiles // 2))}
     G = H // KV
     for n_split, per in sorted(plans):
+        ws = (None, None)
+        if n_split > 1:
+            ws = (torch.empty((B, KV, n_split, G, hd), device=dev),
+                  torch.empty((B, KV, n_split, G, 2), device=dev))
+        out = torch.empty_like(q)
+        decode_attention_bkv(q, kc, vc, valid, out, *ws, n_split=n_split,
+                             tiles_per_split=per, scale=1.0 / hd ** 0.5)
+        assert_attn_close(out, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KV,hd", [(1, 1024, 16, 2, 128),
+                                         (2, 300, 8, 4, 24)])
+def test_decode_kernel_without_valid_slot(dev, dtype, B, W, H, KV, hd):
+    """A row with no valid slot gives the mean of V over the W slots of
+    its kv head, as the plain version and JAX's reference do: through
+    the op (several splits, so the combine takes it), and at n_split = 1
+    (the split kernel's epilogue) and one split per tile."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        TILE, decode_attention_bkv, sm_count, split_plan,
+    )
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(W + hd)
+    q, kc, vc = (torch.randn(s, generator=g, device=dev, dtype=dtype)
+                 for s in ((B, 1, H, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    valid = torch.zeros(W, dtype=torch.bool, device=dev)
+    want = decode_attention_ref(q, kc, vc, valid)
+    mean = vc.float().mean(1).repeat_interleave(H // KV, dim=1)[:, None]
+    torch.testing.assert_close(want.float(), mean, **ATTN_TOL[dtype])
+    assert split_plan(B, W, KV, sm_count(dev.index or 0))[0] > 1
+    assert_attn_close(da_ops.decode_attention(q, kc, vc, valid), want, dtype)
+    tiles = -(-W // TILE)
+    G = H // KV
+    for n_split, per in ((1, tiles), (tiles, 1)):
         ws = (None, None)
         if n_split > 1:
             ws = (torch.empty((B, KV, n_split, G, hd), device=dev),

@@ -19,7 +19,13 @@ from repro.kernels.linucb_step.ref import linucb_step_ref as jstep_ref  # noqa: 
 from repro_torch.kernels import checks  # noqa: E402
 from repro_torch.kernels.linucb_score import ops as score_ops  # noqa: E402
 from repro_torch.kernels.linucb_step import ops as step_ops  # noqa: E402
-from repro_torch.kernels.linucb_step.ref import linucb_step_ref  # noqa: E402
+from repro_torch.kernels.linucb_score.kernel import (  # noqa: E402
+    TILE_ROWS, WIDTHS, score_plan,
+)
+from repro_torch.kernels.linucb_step.kernel import route  # noqa: E402
+from repro_torch.kernels.linucb_step.ref import (  # noqa: E402
+    linucb_step_per_arm_ref, linucb_step_ref,
+)
 
 
 def _spd_inv(rng, lead, d):
@@ -97,7 +103,7 @@ def _port_operands(ops):
             t["forced"] > 0)
 
 
-def _jax_step(ops, s, num_valid):
+def _jax_step(ops, s, num_valid, dt_max=4096):
     """The jitted JAX ref on state ``s`` of the packed operands: (A',
     A_inv', b', theta', last_upd', arms, r, c, lam', c_ema') unpacked."""
     one = {k: v[s] for k, v in ops.items()}
@@ -105,7 +111,7 @@ def _jax_step(ops, s, num_valid):
         one[k] = one[k][None]
     one["forced"] = one["forced"][:, None]
     ref = jax.jit(functools.partial(jstep_ref, num_valid=num_valid,
-                                    dt_max=4096))
+                                    dt_max=dt_max))
     A, Ainv, b, theta, lu, arms, rc, pacer = (
         np.asarray(w) for w in ref(*(jnp.asarray(v) for v in one.values())))
     return (A, Ainv, b, theta, lu[0], arms[:, 0], rc[:, 0], rc[:, 1],
@@ -166,3 +172,96 @@ def test_wrappers_refuse_mixed_or_bad_operands():
                                                 (2, 3)))
     with pytest.raises(ValueError):
         checks.cuda_operands("k", (1, 2, 3), x=(torch.zeros(3, 2).T, (2, 3)))
+
+
+# Operand edits for the per-arm plain version: (name, B, dt_max, edit).
+def _one_arm(ops):            # only arm 2 is a candidate: every row picks it
+    ops["cand"][:] = 0.0
+    ops["cand"][:, 2] = 1.0
+    ops["forced"][:] = 0
+
+
+def _never_chosen(ops):       # the last arm is never a candidate nor forced
+    ops["cand"][:, -1] = 0.0
+    ops["ints"][:, 1] = 0
+
+
+_PER_ARM_CASES = {
+    "one_arm": (24, 4096, _one_arm),
+    "never_chosen": (24, 4096, _never_chosen),
+    "forced_rows": (24, 4096, None),
+    "dt_clipped": (24, 5, None),
+    "one_row": (1, 4096, None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_PER_ARM_CASES))
+def test_step_per_arm_ref(case):
+    """The CUDA kernel's order in plain PyTorch (arm by arm in block
+    order, the pacer folded apart) equals the serial plain version bit for
+    bit, and JAX's ``linucb_step_ref`` within the 1e-4 contract (arms and
+    last_upd exact)."""
+    B, dt_max, edit = _PER_ARM_CASES[case]
+    S, K = 3, 4
+    ops = _step_operands(S, B=B, K=K, seed=11)
+    if edit is not None:
+        edit(ops)
+    args = _port_operands(ops)
+    got = linucb_step_per_arm_ref(*args, num_valid=B, dt_max=dt_max)
+    serial = linucb_step_ref(*args, num_valid=B, dt_max=dt_max)
+    for n, g, w in zip(_STEP_OUT, got, serial):
+        assert torch.equal(g, w), n
+    arms = got[5]
+    if case == "one_arm":
+        assert bool((arms == 2).all())
+    if case == "never_chosen":
+        assert not bool((arms == K - 1).any())
+        assert torch.equal(got[4][:, K - 1], args[4][:, K - 1])
+    if case == "forced_rows":
+        assert bool((arms[:, :3] == args[21][:, None]).all())
+    if case == "dt_clipped":
+        assert bool(((args[20][:, None] - args[4]) > dt_max).any())
+    for s in range(S):
+        want = _jax_step(ops, s, B, dt_max)
+        for n, g, w in zip(_STEP_OUT, got, want):
+            g = g[s].numpy()
+            if n in ("last_upd", "arms"):
+                assert np.array_equal(g, w), n
+            else:
+                np.testing.assert_allclose(g, w, atol=1e-4, rtol=1e-4,
+                                           err_msg=n)
+
+
+@pytest.mark.parametrize("S,R,K,d,dp,grid", [
+    (20, 256, 8, 26, 32, (2, 8, 20)),      # the main path's served block
+    (1, 4096, 8, 128, 128, (32, 8, 1)),    # the largest supported shape
+    (3, 33, 3, 32, 32, (1, 3, 3)),
+    (2, 300, 1, 33, 64, (3, 1, 2)),
+    (1, 128, 5, 64, 64, (1, 5, 1)),
+    (4, 129, 64, 100, 128, (2, 64, 4)),
+    (1, 1, 1, 1, 32, (1, 1, 1)),
+])
+def test_score_plan(S, R, K, d, dp, grid):
+    """DP is the smallest built width that holds d; the grid covers every
+    row once with one block per (128-row tile, arm, state); the threads
+    tile the block's rows and DP columns; a block fits in the 227 KB of
+    shared memory a Hopper block may use."""
+    plan = score_plan(S, R, K, d)
+    assert plan["dp"] == dp and plan["grid"] == grid
+    assert plan["dp"] in WIDTHS and d <= plan["dp"]
+    assert all(w < d for w in WIDTHS if w < plan["dp"])
+    # one thread per (DP / 16) x 8 micro-tile of the 128-row tile
+    assert (TILE_ROWS // plan["rows_per_thread"]) * (plan["dp"] // 8) \
+        == plan["threads"] == 256
+    assert (grid[0] - 1) * TILE_ROWS < R <= grid[0] * TILE_ROWS
+    assert plan["smem_bytes"] <= 232448
+
+
+def test_step_route():
+    """One launch for a single request (and an empty block), two chained
+    launches for B > 1; the CPU path launches nothing on either."""
+    assert [route(B) for B in (0, 1, 2, 13, 256)] == [
+        "single", "single", "pdl", "pdl", "pdl"]
+    before = dict(step_ops.ROUTE_LAUNCHES)
+    step_ops.linucb_step(*_port_operands(_step_operands(1, B=1)))
+    assert step_ops.ROUTE_LAUNCHES == before
