@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from src/repro_torch/kernels/csrc (into
 build/kernels/ at first use) and lists each kernel's registers and spills
-(a spill in the attention or LinUCB kernels fails the run), then:
+(a spill in the attention, LinUCB or SSD kernels fails the run), then:
 
   1. prints the card, its power limit and the torch / CUDA versions, and
      turns TF32 off for matrix products and convolutions;
@@ -43,7 +43,9 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      prompts pad to 32 tokens, one chunk of 32 rows; the longest prompt
      the server keeps is 128, one full chunk), at 16 chunks (bf16) and at
      a ragged f32 shape, kernel and plain version (no single library call
-     computes the scan);
+     computes the scan), each check naming the route its plan took
+     (one_chunk and chunked on the tensor cores, fma on FP32 FMAs) and
+     its bound at that route's peak;
   7. drives the served path at full width: a PortfolioServer of the JAX
      driver's trio, olmo-1b (16 layers), mamba2-370m (48 layers, nothing
      cut) and deepseek-67b at full width with its depth cut to 4 layers,
@@ -54,7 +56,8 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      launched, and the launches of the 24 requests must equal what the
      printed traffic implies (flash one per attention layer per request,
      decode one per layer per token, ssd_scan one per mamba2 layer per
-     request), and every flash launch must have taken the tensor cores;
+     request), every flash launch must have taken the tensor cores and
+     every ssd_scan launch the one-chunk tensor-core route;
   8. teacher-forces one prompt and 8 fixed tokens per arm through the
      kernel route and the plain route: logits within the bf16 tolerance;
   9. traces one request per arm: host ms of prefill and of a decode
@@ -101,6 +104,9 @@ ATTN_ROW_REL_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 TEACHER_BF16_FACTOR = 2.0
 # The SSD scan's (tests/test_kernels.py's SSD tests): f32 and bf16 inputs.
 SSD_TOL = {"float32": 2e-4, "bfloat16": 0.08}
+# The SSD kernels (csrc/ssd_scan.cu), whose spills fail the run too.
+SSD_KERNELS = ("ssd_chunk_mma_kernel", "ssd_chunk_fma_kernel",
+               "ssd_state_pass_kernel")
 
 SEEDS = tuple(range(20))
 N_EFF = 1164.0
@@ -279,7 +285,7 @@ def build_report(log: str):
 # Every kernel the library holds, by the name in its source.
 KERNEL_NAMES = ("linucb_score_kernel", "linucb_update_kernel",
                 "flash_wgmma_kernel", "flash_kernel", "decode_split_kernel",
-                "decode_combine_kernel", "ssd_kernel")
+                "decode_combine_kernel") + SSD_KERNELS
 
 
 def check_score(rng, S, R, K, d):
@@ -630,11 +636,17 @@ def check_decode(gen, B, W, H, KV, hd, dtype, pos, window=0):
 def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
     """ssd_scan against its plain version on the model's layout: x, B and
     C are views of one (B, L, H P + 2 N) projection, as mamba2_forward
-    passes them; y and h_final are both held to the SSD tolerance."""
+    passes them; y and h_final are both held to the SSD tolerance. The
+    timed calls run the op's plan (``ssd_plan``) into the checked outputs;
+    the bound takes the peak of the route that ran (bf16 tensor cores for
+    one_chunk / chunked, FP32 for fma), with the FP32 one beside it."""
     import torch
 
+    from repro_torch.kernels.decode_attention.kernel import sm_count
     from repro_torch.kernels.ssd_scan import ops
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bhp
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_plan, ssd_scan_bhp, tensor_core_aligned, workspace,
+    )
     from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
 
     xBC = torch.randn((B, L, H * P + 2 * N), generator=gen, device="cuda",
@@ -648,7 +660,11 @@ def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
     name = str(dtype).split(".")[1]
     tol = SSD_TOL[name]
     chunk = min(chunk, L)          # what ops.ssd_scan launches
+    plan = ssd_plan(B, L, H, P, N, chunk, dtype,
+                    tensor_core_aligned(x, Bi, Ci), n_sm=sm_count(0))
+    n_route = ops.ROUTE_LAUNCHES[plan["route"]]
     got = ops.ssd_scan(*args, chunk=chunk)
+    assert ops.ROUTE_LAUNCHES[plan["route"]] == n_route + 1
     want = ssd_scan_ref(*args, chunk=chunk)
     torch.cuda.synchronize()
     errs = []
@@ -659,10 +675,12 @@ def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
                     and g.float().isfinite().all()), (
             f"ssd_scan disagrees at {(B, L, H, P, N, name, chunk)}: "
             f"max abs err {errs[-1]}")
-    y, h = torch.empty_like(got[0]), torch.empty_like(got[1])
-    ms = cuda_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
-    dev_ms = device_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
-    g_ms = graph_ms(lambda: ssd_scan_bhp(*args, y, h, chunk=chunk))
+    y, h = got
+    ws = workspace(plan, B, H, N, P, "cuda")
+    run = lambda: ssd_scan_bhp(*args, y, h, *ws, plan=plan)  # noqa: E731
+    ms = cuda_ms(run)
+    dev_ms = device_ms(run)
+    g_ms = graph_ms(run)
     plain_ms = cuda_ms(lambda: ssd_scan_ref(*args, chunk=chunk),
                        reps=5 if L > 512 else 20)
     # Bytes: x, B, C, y in the input dtype, dt, A, D and h_final in f32,
@@ -678,13 +696,19 @@ def check_ssd(gen, B, L, H, P, N, dtype, chunk=128):
         q = min(chunk, L - c0)
         per_head = q * (q + 1) * P + 2 * q * N * P * (2 if c0 else 1)
         flops += B * (q * (q + 1) * N + H * per_head)
-    bms, by = bound(nbytes, flops)
+    peak = BF16_FLOP_PER_S if plan["tensor_cores"] else FP32_FLOP_PER_S
+    bms, by = bound(nbytes, flops, peak)
+    bms32, by32 = bound(nbytes, flops)
     return dict(shape=dict(B=B, L=L, H=H, P=P, N=N, dtype=name,
                            chunk=chunk),
+                route=plan["route"], heads_per_block=plan["heads_per_block"],
+                p_tile=plan["p_tile"], launches_per_call=plan["launches"],
                 max_abs_err=max(errs), max_abs_err_y=errs[0],
                 max_abs_err_h=errs[1], ms=ms, device_ms=dev_ms, graph_ms=g_ms,
                 plain_ms=plain_ms,
-                library_ms=None, bound_ms=bms, bound_by=by, flops=flops,
+                library_ms=None, bound_ms=bms, bound_by=by,
+                peak="bf16 tensor cores" if plan["tensor_cores"] else "fp32",
+                bound_ms_fp32=bms32, bound_by_fp32=by32, flops=flops,
                 bytes=nbytes)
 
 
@@ -813,7 +837,7 @@ def teacher_forced(model, text, dtype, n_tokens=SERVE_NEW_TOKENS):
 # The served kernels' names (csrc/flash_attention.cu, decode_attention.cu,
 # ssd_scan.cu), as the profiler reports them.
 PORTED_KERNELS = ("flash_wgmma_kernel", "flash_kernel", "decode_split_kernel",
-                  "decode_combine_kernel", "ssd_kernel")
+                  "decode_combine_kernel") + SSD_KERNELS
 
 
 def trace_request(model, text):
@@ -898,7 +922,7 @@ def main() -> int:
     print(f"[build] {lib.parent.name} in {time.perf_counter() - t0:.1f} s")
     spills = [k for k in build_report(build.build_log())
               if k.startswith(("flash_wgmma", "decode_split", "decode_comb",
-                               "linucb_"))]
+                               "linucb_", "ssd_"))]
     assert not spills, f"register spills in {spills}"
 
     # Phase 2: each kernel against its plain version on the card.
@@ -1077,8 +1101,9 @@ def main() -> int:
 
     for mod in served_ops.values():
         mod.LAUNCHES[0] = 0
-    for r in flash_ops.ROUTE_LAUNCHES:
-        flash_ops.ROUTE_LAUNCHES[r] = 0
+    for routes in (flash_ops.ROUTE_LAUNCHES, ssd_ops.ROUTE_LAUNCHES):
+        for r in routes:
+            routes[r] = 0
     for model in arms:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1125,6 +1150,11 @@ def main() -> int:
     print(f"[serve] flash_attention launches by route: {flash_routes}")
     assert flash_routes["tensor_cores"] == launches["flash_attention"], (
         flash_routes)
+    # Every served prompt is one chunk (at most 128 tokens) of bf16 with
+    # N = 128 and P = 64: every ssd_scan launch took one_chunk.
+    ssd_routes = dict(ssd_ops.ROUTE_LAUNCHES)
+    print(f"[serve] ssd_scan launches by route: {ssd_routes}")
+    assert ssd_routes["one_chunk"] == launches["ssd_scan"], ssd_routes
 
     # Phase 8: teacher-forced logits, kernel route against plain route.
     # In bf16, as served, the two routes' kernel outputs differ by a bf16
@@ -1199,6 +1229,7 @@ def main() -> int:
             k["launches_served"] = served_launches[k["name"]]
     kernels[1]["launches_by_route"] = step_routes
     kernels[2]["launches_by_route"] = flash_routes
+    kernels[4]["launches_by_route"] = ssd_routes
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -127,7 +127,8 @@ def library() -> ctypes.CDLL:
         lib.decode_attention_launch.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
         lib.decode_attention_launch.restype = I
         LL = ctypes.c_longlong
-        lib.ssd_scan_launch.argtypes = [P] * 8 + [I] * 6 + [LL] * 6 + [I, P]
+        lib.ssd_scan_launch.argtypes = ([P] * 10 + [I] * 6 + [LL] * 6
+                                        + [I] * 4 + [P])
         lib.ssd_scan_launch.restype = I
         _LIB = lib
     return _LIB

@@ -61,6 +61,7 @@
 #include <cstdint>
 
 #include "attention_common.cuh"
+#include "warp_mma.cuh"
 
 namespace {
 
@@ -78,15 +79,8 @@ __host__ __device__ inline int row_bytes(int hd, int es) {
   return (hd * es + 15) / 16 * 16 + 16;
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-                  "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
+using warp_mma::cp_async16;
+using warp_mma::cp_async_commit;
 __device__ __forceinline__ void cp_async_wait_older() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
@@ -144,36 +138,12 @@ __device__ __forceinline__ void load_tile(uint8_t* dst,
   }
 }
 
-// ---- tensor-core pieces of the bf16 path (mma.sync m16n8k16) ----
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
-      : "=r"(r[0]), "=r"(r[1]) : "r"(smem_addr(p)));
-}
-// C (16 x 8, f32) += A (16 x 16, bf16, row) * B (16 x 8, bf16, col).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
+// The tensor-core pieces of the bf16 path (mma.sync m16n8k16):
+// csrc/warp_mma.cuh.
+using warp_mma::ldmatrix_x2;
+using warp_mma::ldmatrix_x2_trans;
+using warp_mma::ldmatrix_x4;
+using warp_mma::mma_bf16;
 
 // The two ways through a tile: FP32 FMAs element by element (kFma), and
 // bf16 on the tensor cores (kMma: hd a multiple of 16, 16-byte rows).

@@ -29,6 +29,8 @@
 
 #include <cstdint>
 
+#include "warp_mma.cuh"
+
 namespace linucb {
 
 constexpr int kMaxD = 128;
@@ -85,16 +87,9 @@ __device__ __forceinline__ void cp_async_wait(int n) {
   }
 }
 
-// Programmatic dependent launch: the primary grid lets the next grid of
-// the stream start early; the dependent grid waits for the primary's
-// completion (and its writes) before it reads what the primary wrote.
-// Both are no-ops without the launch attribute.
-__device__ __forceinline__ void pdl_launch_dependents() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-__device__ __forceinline__ void pdl_wait() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
+// Programmatic dependent launch (warp_mma.cuh).
+using warp_mma::pdl_launch_dependents;
+using warp_mma::pdl_wait;
 
 // The select rule of one request row: Eq. 2 score + tiebreak noise on the
 // hard-ceiling candidates (-1e30 elsewhere), argmax with a strict '>' in

@@ -272,35 +272,116 @@ def test_decode_kernel_without_valid_slot(dev, dtype, B, W, H, KV, hd):
         assert_attn_close(out, want, dtype)
 
 
-@pytest.mark.parametrize("B,L,H,P,N,chunk,dtype,tol", [
-    (1, 32, 32, 64, 128, 128, torch.bfloat16, 0.08),   # a served prompt
-    (1, 128, 32, 64, 128, 128, torch.bfloat16, 0.08),  # the longest one
-    (1, 2048, 32, 64, 128, 128, torch.bfloat16, 0.08),  # 16 chunks
-    (2, 40, 4, 8, 16, 16, torch.float32, 2e-4),         # ragged L
-])
-def test_ssd_kernel_matches_plain(dev, B, L, H, P, N, chunk, dtype, tol):
-    """The kernel against its plain version on the model's layout: x, B
-    and C as views of one (B, L, H P + 2 N) projection, as mamba2_forward
-    passes them. Tolerance: the JAX SSD tests' 2e-4 (f32) and 0.08
-    (bf16 inputs)."""
-    from repro_torch.kernels.ssd_scan import ops as ssd_ops
-    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+BF16, F32 = torch.bfloat16, torch.float32
+SSD_TOL = {BF16: 0.08, F32: 2e-4}   # the JAX SSD tests' bars
 
-    g = torch.Generator(device=dev).manual_seed(L + P)
-    xBC = torch.randn((B, L, H * P + 2 * N), generator=g, device=dev,
-                      dtype=dtype)
+
+def _ssd_inputs(dev, B, L, H, P, N, dtype, offset=0):
+    """The SSD operands on the model's layout: x, B and C as views of one
+    (B, L, offset + H P + 2 N) projection, as mamba2_forward passes them
+    (``offset`` leading columns shift the views off 16-byte
+    boundaries)."""
+    g = torch.Generator(device=dev).manual_seed(L + P + N)
+    xBC = torch.randn((B, L, offset + H * P + 2 * N), generator=g,
+                      device=dev, dtype=dtype)[..., offset:]
     xs, Bi, Ci = torch.split(xBC, [H * P, N, N], dim=-1)
-    x = xs.reshape(B, L, H, P)
     dt = torch.rand((B, L, H), generator=g, device=dev) * 0.099 + 0.001
     A = -(torch.rand((H,), generator=g, device=dev) * 3.5 + 0.5)
     D = torch.randn((H,), generator=g, device=dev)
-    n = ssd_ops.LAUNCHES[0]
-    y, h = ssd_ops.ssd_scan(x, dt, A, Bi, Ci, D, chunk=chunk)
-    assert ssd_ops.LAUNCHES[0] == n + 1
-    y_ref, h_ref = ssd_scan_ref(x, dt, A, Bi, Ci, D, chunk=chunk)
+    return xs.reshape(B, L, H, P), dt, A, Bi, Ci, D
+
+
+def _assert_ssd_close(got, want, dtype):
+    y, h = got
     assert y.dtype == dtype and h.dtype == torch.float32
-    torch.testing.assert_close(y.float(), y_ref.float(), rtol=tol, atol=tol)
-    torch.testing.assert_close(h, h_ref, rtol=tol, atol=tol)
+    tol = SSD_TOL[dtype]
+    torch.testing.assert_close(y.float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(h, want[1], rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("B,L,H,P,N,chunk,dtype,route", [
+    # the served prompts (pad to 32, kept up to 128): one chunk
+    (1, 32, 32, 64, 128, 128, BF16, "one_chunk"),
+    (1, 64, 32, 64, 128, 128, BF16, "one_chunk"),
+    (1, 96, 32, 64, 128, 128, BF16, "one_chunk"),
+    (1, 128, 32, 64, 128, 128, BF16, "one_chunk"),
+    (1, 1, 8, 64, 128, 128, BF16, "one_chunk"),
+    # long prompts: the chunk-parallel route, ragged last chunks
+    (1, 2048, 32, 64, 128, 128, BF16, "chunked"),
+    (1, 129, 8, 64, 128, 128, BF16, "chunked"),
+    (1, 256, 8, 64, 128, 128, BF16, "chunked"),
+    (1, 300, 8, 64, 128, 128, BF16, "chunked"),
+    (1, 300, 3, 64, 128, 128, BF16, "chunked"),
+    # chunks that are not 16-row multiples, and small ones
+    (1, 100, 4, 64, 128, 40, BF16, "chunked"),
+    (1, 50, 4, 64, 128, 8, BF16, "chunked"),
+    # other widths, B = 2
+    (2, 100, 4, 24, 64, 32, BF16, "chunked"),
+    (2, 40, 4, 24, 16, 16, BF16, "chunked"),
+    (2, 20, 4, 32, 16, 128, BF16, "one_chunk"),
+    # N % 16 != 0: bf16 on the FP32-FMA route
+    (1, 40, 4, 24, 24, 16, BF16, "fma"),
+    (1, 24, 4, 32, 24, 128, BF16, "fma"),
+    # f32 takes the FP32-FMA route
+    (2, 40, 4, 8, 16, 16, F32, "fma"),
+    (1, 32, 32, 64, 128, 128, F32, "fma"),
+    (1, 300, 4, 64, 128, 128, F32, "fma"),
+])
+def test_ssd_kernel_matches_plain(dev, B, L, H, P, N, chunk, dtype, route):
+    """The op against its plain version on the model's layout, on the
+    route its plan picks (asserted through the route counter).
+    Tolerance: the JAX SSD tests' 2e-4 (f32) and 0.08 (bf16 inputs), on y
+    and on the final state."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    args = _ssd_inputs(dev, B, L, H, P, N, dtype)
+    n, n_route = ssd_ops.LAUNCHES[0], ssd_ops.ROUTE_LAUNCHES[route]
+    got = ssd_ops.ssd_scan(*args, chunk=chunk)
+    assert ssd_ops.LAUNCHES[0] == n + 1
+    assert ssd_ops.ROUTE_LAUNCHES[route] == n_route + 1
+    _assert_ssd_close(got, ssd_scan_ref(*args, chunk=min(chunk, L)), dtype)
+
+
+@pytest.mark.parametrize("L,chunk", [(32, 128), (300, 128)])
+def test_ssd_kernel_misaligned_view(dev, L, chunk):
+    """bf16 views whose data is off 16-byte boundaries cannot be staged by
+    16-byte copies: the plan sends them to the FP32-FMA route."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    args = _ssd_inputs(dev, 1, L, 4, 64, 128, BF16, offset=1)
+    assert args[0].data_ptr() % 16
+    n = ssd_ops.ROUTE_LAUNCHES["fma"]
+    got = ssd_ops.ssd_scan(*args, chunk=chunk)
+    assert ssd_ops.ROUTE_LAUNCHES["fma"] == n + 1
+    _assert_ssd_close(got, ssd_scan_ref(*args, chunk=min(chunk, L)), BF16)
+
+
+@pytest.mark.parametrize("G,TP", [(1, 8), (2, 64), (3, 32), (4, 16)])
+@pytest.mark.parametrize("B,L,H,P,N,chunk", [
+    (1, 300, 3, 64, 128, 128), (2, 32, 5, 32, 64, 32),
+    (1, 70, 9, 64, 32, 48)])
+def test_ssd_kernel_plans_match_plain(dev, G, TP, B, L, H, P, N, chunk):
+    """The tensor-core kernels under plans the heuristic may not pick:
+    heads per block that do not divide H, P tiles from 8 columns to wider
+    than P (the tile's columns past P are masked), several chunks and
+    one."""
+    from repro_torch.kernels.ssd_scan.kernel import (
+        ssd_plan, ssd_scan_bhp, workspace,
+    )
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    args = _ssd_inputs(dev, B, L, H, P, N, BF16)
+    chunk = min(chunk, L)
+    plan = dict(ssd_plan(B, L, H, P, N, chunk, BF16, True),
+                heads_per_block=G, p_tile=TP)
+    assert plan["tensor_cores"]
+    y = torch.empty_like(args[0])
+    h = torch.empty((B, H, N, P), device=dev)
+    ssd_scan_bhp(*args, y, h, *workspace(plan, B, H, N, P, dev), plan=plan)
+    _assert_ssd_close((y, h), ssd_scan_ref(*args, chunk=chunk), BF16)
 
 
 def test_portfolio_serves_on_card(dev):

@@ -50,6 +50,14 @@ class TestStationaryPacing:
                    for b in (1.0e-4, 6.6e-4, 4.0e-3)]
         assert rewards[0] < rewards[1] < rewards[2]
 
+    def test_budget_dial_beats_fixed_llama(self, bench, priors):
+        res = evaluate.run(CFG, bench.test, 2.3e-4, seeds=SEEDS,
+                           priors=priors, n_eff=N_EFF)
+        llama_only = bench.test.rewards[:, 0].mean()
+        print(f"budget 2.3e-4: mean reward {res.mean_reward:.6f}, "
+              f"llama-only {float(llama_only):.6f}")
+        assert res.mean_reward > llama_only + 0.02
+
 
 class TestCostDrift:
     def test_price_drop_reward_lift_and_recovery(self, bench, priors):
