@@ -62,7 +62,23 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      kernel route and the plain route: logits within the bf16 tolerance;
   9. traces one request per arm: host ms of prefill and of a decode
      token, device busy ms and idle share, the ported kernels' share and
-     their launches and ms by kernel.
+     their launches and ms by kernel;
+ 10. runs the scenario engine (evaluate.run_scenario) on the fused
+     backend: (a) the paper-claims twin's drift, regression and
+     onboarding protocols as specs (6 seeds, phases of 304, request by
+     request) held to the twin's bars, drift and good_cheap onboarding
+     also against the twin's hand-rolled phase loops, arm for arm; (b) the
+     benchmarks' protocols at full size (1,824 requests, 20 seeds, fitted
+     priors, alpha 0.01, gamma 0.997): silent and recalibrated drift, the
+     0.75 regression and good_cheap onboarding, request by request and in
+     blocks of 256, each block run (and the silent drift request by
+     request) held to the "torch" oracle per segment (arm agreement >=
+     0.99, mean reward within 1e-3); (c) a silent drift under
+     Timeline((512, 1280), horizon=1792) on a padded horizon of 2048,
+     identical to the retimed spec's run in blocks of 256 and request by
+     request. linucb_step's counters are zeroed before the phase; its
+     launches by route must equal what the specs imply (ceil(L / B)
+     blocks a segment, padded steps included).
 
 Prints the kernels JSON line, then the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -111,6 +127,21 @@ SSD_KERNELS = ("ssd_chunk_mma_kernel", "ssd_chunk_fma_kernel",
 SEEDS = tuple(range(20))
 N_EFF = 1164.0
 BUDGETS = (3.0e-4, 6.6e-4)
+
+# The scenario phase's protocols, copied from the JAX package's benchmarks
+# (the card's machine has no JAX): benchmarks/bench_cost_drift.py:32-34
+# (PHASE, GEMINI, PRICE_MULT), bench_degradation.py:30 (MISTRAL),
+# bench_onboarding.py:24-26 (phase 1 of 608, FLASH), benchmarks/common.py:27
+# (PARETO_CFG: alpha 0.01, gamma 0.997) and src/repro/core/costs.py:67-68
+# (the tight and moderate budgets). The paper-claims twin's protocols
+# (tests/test_torch_paper_claims.py) run 6 seeds with phases of 304.
+PHASE = 608
+GEMINI, MISTRAL, FLASH = 2, 1, 3
+PRICE_MULT = (0.10 / 1e3) / 5.6e-3
+BUDGET_TIGHT, BUDGET_MODERATE = 3.0e-4, 6.6e-4
+PARETO_HYPER = dict(alpha=0.01, gamma=0.997)
+TWIN_SEEDS, TWIN_PHASE = tuple(range(6)), 304
+SCENARIO_BLOCK = 256
 
 
 def nvidia_smi() -> str:
@@ -888,6 +919,199 @@ def trace_request(model, text):
                                   for k, (n, t) in by_name.items()})
 
 
+def step_launches(seg_lens, batch_size):
+    """linucb_step's launches by route for a run of segments of
+    ``seg_lens`` requests: ceil(L / B) blocks each, a trailing partial
+    block run as one smaller block; a block of one takes ``single``."""
+    B = batch_size or 1
+    out = {"single": 0, "pdl": 0}
+    for L in seg_lens:
+        sizes = [B] * (L // B) + ([L % B] if L % B else [])
+        for n in sizes:
+            out["single" if n <= 1 else "pdl"] += 1
+    return out
+
+
+def scenario_phase(bench, priors):
+    """Phase 10: the scenario engine (evaluate.run_scenario) on the card.
+    Returns linucb_step's launches by route in this phase and what the
+    specs imply."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import evaluate, registry, simulator
+    from repro_torch.core.scenario import (
+        AddArm, PriceChange, QualityShift, ScenarioSpec, Timeline, retime,
+    )
+    from repro_torch.core.types import HyperParams, RouterConfig
+
+    expect = {"single": 0, "pdl": 0}
+
+    def count(seg_lens, bs):
+        for r, n in step_launches(seg_lens, bs).items():
+            expect[r] += n
+
+    def run(cfg, spec, env, budget, seeds, bs, pri, label, timeline=None,
+            fused=True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = evaluate.run_scenario(cfg, spec, env, budget, seeds=seeds,
+                                    priors=pri, n_eff=N_EFF, batch_size=bs,
+                                    timeline=timeline)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        h = (spec if timeline is None else retime(spec, timeline)).horizon
+        assert res.arms.shape == (len(seeds), h)
+        assert np.isfinite(res.rewards).all() and np.isfinite(res.costs).all()
+        if fused:
+            count([spec.horizon] if timeline is not None
+                  else [b - a for a, b in spec.segments], bs)
+        segs = [res.segment(j) for j in range(res.n_segments)]
+        print(f"[scenario] {label} batch_size={bs} budget={budget}: mean "
+              f"reward by segment {[round(x.mean_reward, 6) for x in segs]}, "
+              f"compliance {[round(x.compliance(budget), 6) for x in segs]}, "
+              f"allocation "
+              f"{[x.allocation(env.k).round(4).tolist() for x in segs]}, "
+              f"wall {secs:.3f} s, decisions/s {res.arms.size / secs:.1f}")
+        return res
+
+    def same_arms(a, b, what):
+        assert np.array_equal(a, b), f"{what}: arms differ"
+
+    # (a) The paper-claims protocols as specs, request by request.
+    cfg = RouterConfig()
+    pri3, pri4 = list(priors), list(priors) + [None]
+    test = bench.test
+    drift = run(cfg, ScenarioSpec(horizon=3 * TWIN_PHASE, events=(
+        PriceChange(TWIN_PHASE, GEMINI, 1 / 56),
+        PriceChange(2 * TWIN_PHASE, GEMINI, 1.0)), stream_seed_base=100,
+        replay=((2, 0),)), test, BUDGET_TIGHT, TWIN_SEEDS, None, pri3,
+        "twin drift")
+    lift = drift.segment(1).mean_reward - drift.segment(0).mean_reward
+    comp3 = drift.segment(2).compliance(BUDGET_TIGHT)
+    print(f"[scenario] twin drift: reward lift {lift:.6f} (bar 0.02), phase-3 "
+          f"compliance {comp3:.6f} (bar (0.85, 1.15))")
+    assert lift > 0.02 and 0.85 < comp3 < 1.15
+    envs = [simulator.three_phase_stream(
+        test, lambda e: simulator.with_price_multiplier(e, GEMINI, 1 / 56),
+        np.random.default_rng(100 + s), phase_len=TWIN_PHASE)
+        for s in TWIN_SEEDS]
+    hand = evaluate.run(cfg, envs, BUDGET_TIGHT, seeds=TWIN_SEEDS,
+                        priors=pri3, n_eff=N_EFF, shuffle=False)
+    count([3 * TWIN_PHASE], None)
+    same_arms(hand.arms, drift.arms, "twin drift against its hand-rolled loop")
+
+    reg = run(cfg, ScenarioSpec(horizon=3 * TWIN_PHASE, events=(
+        QualityShift(TWIN_PHASE, MISTRAL, 0.75),
+        QualityShift(2 * TWIN_PHASE, MISTRAL, None)), stream_seed_base=200,
+        replay=((2, 0),)), test, BUDGET_MODERATE, TWIN_SEEDS, None, pri3,
+        "twin regression")
+    m1 = reg.segment(0).allocation(3)[MISTRAL]
+    m2 = reg.phase(3 * TWIN_PHASE // 2, 2 * TWIN_PHASE).allocation(3)[MISTRAL]
+    rec = reg.segment(2).mean_reward / reg.segment(0).mean_reward
+    comp = reg.compliance(BUDGET_MODERATE)
+    print(f"[scenario] twin regression: mistral share {m1:.4f} -> {m2:.4f} "
+          f"(bar < 0.65x), recovery {rec:.6f} (bar 0.93), compliance "
+          f"{comp:.6f} (bar (0.8, 1.1))")
+    assert m2 < 0.65 * m1 and rec > 0.93 and 0.8 < comp < 1.1
+
+    onboard = ScenarioSpec(horizon=3 * TWIN_PHASE,
+                           events=(AddArm(TWIN_PHASE, FLASH),),
+                           segment_seeds=(300, 400), init_active=3)
+    for name in ("good_cheap", "bad_cheap"):
+        env4 = simulator.extend_with_flash(test, name)
+        res = run(cfg, onboard, env4, BUDGET_MODERATE, TWIN_SEEDS, None, pri4,
+                  f"twin onboarding {name}")
+        tail = float((res.phase(2 * TWIN_PHASE, 3 * TWIN_PHASE).arms
+                      == FLASH).mean())
+        burn = res.segment(1).arms
+        bar = "> 0.02" if name == "good_cheap" else "< 0.02"
+        print(f"[scenario] twin onboarding {name}: newcomer share in the last "
+              f"{TWIN_PHASE} steps {tail:.4f} (bar {bar})")
+        if name == "good_cheap":
+            assert tail > 0.02
+            s1 = [env4.repeat_to(TWIN_PHASE, np.random.default_rng(300 + s))
+                  for s in TWIN_SEEDS]
+            s2 = [env4.repeat_to(2 * TWIN_PHASE,
+                                 np.random.default_rng(400 + s))
+                  for s in TWIN_SEEDS]
+            st = evaluate.make_states(cfg, env4, BUDGET_MODERATE, TWIN_SEEDS,
+                                      priors=pri4, n_eff=N_EFF, active_arms=3)
+            h1, st = evaluate.run(cfg, s1, BUDGET_MODERATE, seeds=TWIN_SEEDS,
+                                  states=st, shuffle=False, return_states=True)
+            st = registry.add_arm(
+                cfg, st, FLASH, float(env4.prices_per_req[FLASH]),
+                float(env4.prices_per_1k[FLASH]), forced_exploration=True)
+            h2 = evaluate.run(cfg, s2, BUDGET_MODERATE, seeds=TWIN_SEEDS,
+                              states=st, shuffle=False)
+            count([TWIN_PHASE, 2 * TWIN_PHASE], None)
+            same_arms(np.concatenate([h1.arms, h2.arms], 1), res.arms,
+                      "twin onboarding against its hand-rolled loop")
+        else:
+            assert tail < 0.02
+            assert (burn[:, :cfg.forced_pulls] == FLASH).all()
+            assert not (burn[:, cfg.forced_pulls:40] == FLASH).all()
+    print("[scenario] twin bars met; drift and good_cheap onboarding equal "
+          "their hand-rolled loops arm for arm")
+
+    # (b) The benchmarks' protocols at full size against the oracle.
+    pareto = RouterConfig(hyper=HyperParams(**PARETO_HYPER))
+    oracle = RouterConfig(backend="torch", hyper=HyperParams(**PARETO_HYPER))
+    drift_spec = lambda recal: ScenarioSpec(  # noqa: E731
+        horizon=3 * PHASE, events=(
+            PriceChange(PHASE, GEMINI, PRICE_MULT, recalibrate=recal),
+            PriceChange(2 * PHASE, GEMINI, 1.0, recalibrate=recal)),
+        stream_seed_base=1000, replay=((2, 0),))
+    protocols = [
+        ("drift silent", drift_spec(False), test, BUDGET_TIGHT, pri3),
+        ("drift recalibrated", drift_spec(True), test, BUDGET_TIGHT, pri3),
+        ("regression 0.75", ScenarioSpec(horizon=3 * PHASE, events=(
+            QualityShift(PHASE, MISTRAL, 0.75),
+            QualityShift(2 * PHASE, MISTRAL, None)), stream_seed_base=2000,
+            replay=((2, 0),)), test, BUDGET_MODERATE, pri3),
+        ("onboarding good_cheap", ScenarioSpec(
+            horizon=3 * PHASE, events=(AddArm(PHASE, FLASH),),
+            segment_seeds=(3000, 4000), init_active=3),
+         simulator.extend_with_flash(test, "good_cheap"), BUDGET_MODERATE,
+         pri4),
+    ]
+    for label, spec, env, budget, pri in protocols:
+        for bs in (None, SCENARIO_BLOCK):
+            got = run(pareto, spec, env, budget, SEEDS, bs, pri, label)
+            if bs is None and label != "drift silent":
+                continue
+            ref = run(oracle, spec, env, budget, SEEDS, bs, pri,
+                      f"{label} (oracle)", fused=False)
+            for j in range(got.n_segments):
+                a, b = got.segment(j), ref.segment(j)
+                agree = float((a.arms == b.arms).mean())
+                dr = abs(a.mean_reward - b.mean_reward)
+                print(f"[scenario] {label} batch_size={bs} segment {j}: arm "
+                      f"agreement with the oracle {agree:.6f}, "
+                      f"|d mean reward| {dr:.3e}")
+                assert agree >= 0.99 and dr <= 1e-3, (label, bs, j)
+
+    # (c) Timeline identity: the masked runner against the retimed spec.
+    spec = ScenarioSpec(horizon=8 * SCENARIO_BLOCK, events=(
+        PriceChange(PHASE, GEMINI, PRICE_MULT),
+        PriceChange(2 * PHASE, GEMINI, 1.0)), stream_seed_base=1000)
+    tl = Timeline((2 * SCENARIO_BLOCK, 5 * SCENARIO_BLOCK),
+                  horizon=7 * SCENARIO_BLOCK)
+    for bs in (SCENARIO_BLOCK, None):
+        masked = run(pareto, spec, test, BUDGET_TIGHT, SEEDS, bs, pri3,
+                     "timeline", timeline=tl)
+        base = run(pareto, retime(spec, tl), test, BUDGET_TIGHT, SEEDS, bs,
+                   pri3, "timeline's retimed spec")
+        for f in ("arms", "rewards", "costs", "lams"):
+            assert np.array_equal(getattr(masked, f),
+                                  getattr(base, f)), (bs, f)
+        assert masked.bounds == base.bounds
+        print(f"[scenario] timeline batch_size={bs}: identical to the retimed "
+              f"spec on the {tl.horizon} live steps (arms, rewards, costs, "
+              f"lams); bounds {masked.bounds}")
+    return expect
+
+
 def main() -> int:
     try:
         import torch
@@ -1196,6 +1420,20 @@ def main() -> int:
               f"{t['ported_ms']:.3f} ms ({t['ported_share']:.4f} of "
               f"device time): {json.dumps(t['ported_by_kernel'])}")
 
+    # Phase 10: the scenario engine. linucb_step's counters are zeroed
+    # just before the phase and read just after.
+    step_ops.LAUNCHES[0] = 0
+    for r in step_ops.ROUTE_LAUNCHES:
+        step_ops.ROUTE_LAUNCHES[r] = 0
+    t0 = time.perf_counter()
+    want_routes = scenario_phase(bench, priors)
+    scenario_routes = dict(step_ops.ROUTE_LAUNCHES)
+    print(f"[scenario] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"linucb_step launches {step_ops.LAUNCHES[0]} by route "
+          f"{scenario_routes}, expected from the specs {want_routes}")
+    assert scenario_routes == want_routes, (scenario_routes, want_routes)
+    assert step_ops.LAUNCHES[0] == sum(want_routes.values())
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -1228,6 +1466,7 @@ def main() -> int:
         if k["name"] in served_launches:
             k["launches_served"] = served_launches[k["name"]]
     kernels[1]["launches_by_route"] = step_routes
+    kernels[1]["launches_scenario_by_route"] = scenario_routes
     kernels[2]["launches_by_route"] = flash_routes
     kernels[4]["launches_by_route"] = ssd_routes
     print(json.dumps({"kernels": kernels}))

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import prng, router, warmup
+from repro_torch.core import scenario as scenario_lib
 from repro_torch.core.pacer import validate_budget
 from repro_torch.core.simulator import Environment
 from repro_torch.core.types import (
@@ -256,10 +257,102 @@ def run(
         states = make_states(
             cfg, env0, budget, seeds, priors=priors, n_eff=n_eff,
             pacer_enabled=pacer_enabled, hyper=hyper, device=device)
-    finals, (arms, r, c, lam) = router.run_stream_batched(
-        cfg, states, xs, rmat, cmat, batch_size or 1)
-    res = RunResult(arms=arms.cpu().numpy(), rewards=r.cpu().numpy(),
-                    costs=c.cpu().numpy(), lams=lam.cpu().numpy())
+    finals, trace = stream_body(cfg, batch_size)(states, xs, rmat, cmat)
+    res = _result(trace)
+    if return_states:
+        return res, finals
+    return res
+
+
+def _result(trace, h: Optional[int] = None, bounds=None) -> RunResult:
+    """A run's (S, T) device traces as a ``RunResult`` on the host, cut
+    to the first ``h`` steps."""
+    arms, r, c, lam = (t[:, :h].cpu().numpy() for t in trace)
+    return RunResult(arms=arms, rewards=r, costs=c, lams=lam, bounds=bounds)
+
+
+def stream_body(cfg: RouterConfig, batch_size=None):
+    """The stack's stream program: one (S, T) stream through the data
+    plane in blocks of ``batch_size`` (None: the per-request loop)."""
+
+    def run(state, x, rm, cm):
+        return router.run_stream_batched(cfg, state, x, rm, cm,
+                                         batch_size or 1)
+
+    return run
+
+
+def run_scenario(
+    cfg: RouterConfig,
+    spec: "scenario_lib.ScenarioSpec",
+    env: Environment,
+    budget: float,
+    seeds: Sequence[int] = tuple(range(20)),
+    *,
+    priors: Optional[Sequence[ArmPrior | None]] = None,
+    n_eff: float = 0.0,
+    pacer_enabled: bool = True,
+    batch_size: Optional[int] = None,
+    return_states: bool = False,
+    hyper: Optional[HyperParams] = None,
+    scenario_params: Optional["scenario_lib.ScenarioParams"] = None,
+    timeline: Optional["scenario_lib.Timeline"] = None,
+    tenants=None,
+    tenant_ids=None,
+    device=None,
+):
+    """Run a declarative ``ScenarioSpec`` over ``env`` for every seed as
+    one state stack (scenario.py).
+
+    The spec's event timeline becomes a per-seed stream stack plus state
+    edits applied between segments; ``batch_size`` > 1 runs every segment
+    through the batched data plane instead of the per-request loop. The
+    returned ``RunResult`` carries the spec's segment ``bounds``, so
+    metrics reduce per segment via ``res.segment(j)``.
+
+    ``scenario_params`` resolves any ``Param`` payload references in the
+    spec (DESIGN.md §10): leaves are shared by every seed or per-seed
+    ``(len(seeds),)`` stacks.
+
+    ``timeline`` moves the spec's event *times* (and optionally shrinks
+    the effective horizon, padding the run) through the masked timeline
+    runner (DESIGN.md §12): identical to running the concrete retimed
+    spec on live steps. Traces and bounds come back cut to the effective
+    horizon. ``device`` defaults to the card. Tenant runs are not ported
+    yet and raise ``NotImplementedError``.
+    """
+    if tenants is not None or tenant_ids is not None:
+        raise NotImplementedError("tenant scenario runs are not ported yet")
+    device = resolve_device(device)
+    params = scenario_lib.resolve_params(spec, scenario_params)
+    full = params.updated(**scenario_lib.auto_param_values(spec))
+    states = make_states(
+        cfg, env, budget, seeds, priors=priors, n_eff=n_eff,
+        pacer_enabled=pacer_enabled, active_arms=spec.init_active,
+        hyper=hyper, device=device)
+    S = len(seeds)
+    bp = scenario_lib.broadcast_params(full, S, device)
+    if timeline is not None:
+        rspec = scenario_lib.retime(spec, timeline)
+        scenario_lib.validate_timeline_alignment(
+            rspec, batch_size, spec.horizon)
+        xs, rmat, cmat = scenario_lib.build_streams(
+            cfg, rspec, env, seeds, params=params, pad_to=spec.horizon,
+            device=device)
+        run_fn = scenario_lib.compiled_timeline_runner(
+            cfg, spec, env, batch_size)
+        ev = np.broadcast_to(
+            np.asarray([e.t for e in rspec.events], np.int64),
+            (S, len(spec.events)))
+        hz = np.full((S,), rspec.horizon, np.int64)
+        finals, trace = run_fn(states, xs, rmat, cmat, bp, ev, hz)
+        res = _result(trace, rspec.horizon, rspec.bounds)
+    else:
+        xs, rmat, cmat = scenario_lib.build_streams(
+            cfg, spec, env, seeds, params=params, device=device)
+        run_fn = scenario_lib.compiled_runner(cfg, spec, env, batch_size)
+        finals, trace = run_fn(states, xs, rmat, cmat, bp)
+        res = _result(trace, bounds=spec.bounds)
     if return_states:
         return res, finals
     return res

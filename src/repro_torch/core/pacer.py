@@ -22,9 +22,12 @@ BUDGET_EPS = 1e-12
 
 
 def validate_budget(budget, *, what: str = "budget") -> None:
-    """Host-boundary positivity check on a number, array or tensor."""
+    """Host-boundary positivity check on a number or a host array (every
+    entry > 0). A tensor passes unchecked and without a device sync, as a
+    traced budget does in the JAX package: the ``BUDGET_EPS`` floor in
+    ``pacer_update`` covers it."""
     if isinstance(budget, Tensor):
-        budget = budget.detach().cpu().numpy()
+        return
     b = np.asarray(budget, np.float64)
     if not np.all(b > 0.0):
         raise ValueError(f"{what}={budget!r}: must be > 0 ($/request ceiling)")
@@ -84,9 +87,13 @@ def hard_ceiling_mask(p: PacerState, price: Tensor, active: Tensor) -> Tensor:
 
 
 def set_budget(p: PacerState, budget) -> PacerState:
-    """Operator retargets the ceiling at runtime: one budget or (S,)."""
+    """Operator retargets the ceiling at runtime: one budget or one per
+    state, as numbers (validated here, before they become a tensor) or as
+    a tensor (a scenario payload, unchecked)."""
     validate_budget(budget)
-    b = torch.as_tensor(budget, dtype=torch.float32, device=p.budget.device)
+    if not isinstance(budget, Tensor):
+        budget = torch.from_numpy(np.asarray(budget, np.float32))
+    b = budget.to(device=p.budget.device, dtype=torch.float32)
     return PacerState(lam=p.lam, c_ema=p.c_ema,
                       budget=b.expand(p.budget.shape).contiguous(),
                       enabled=p.enabled)

@@ -30,16 +30,26 @@ Tensor = torch.Tensor
 
 
 def _put(leaf: Tensor, slot: int, value) -> Tensor:
-    """``leaf`` with slot ``slot`` of every state set to ``value``."""
+    """``leaf`` with slot ``slot`` of every state set to ``value``: one
+    value for every state, or a leading (S,) axis of them."""
     out = leaf.clone()
     out[:, slot] = value
     return out
+
+
+def _per_state(v, S: int, device) -> Tensor:
+    """A payload as an (S,) f32 tensor: a number rounds to f32 once, as
+    ``_put`` rounds it; a tensor (one value or (S,)) is taken as it is."""
+    if isinstance(v, Tensor):
+        return v.to(device=device, dtype=torch.float32).expand(S)
+    return torch.full((S,), float(v), dtype=torch.float32, device=device)
 
 
 def heuristic_prior(cfg: RouterConfig, hp, n_eff: float, bias_reward: float):
     """§3.4: for models absent from offline data — n_eff pseudo-observations
     at isotropic uncertainty with a bias-only reward prediction. Assumes the
     bias coordinate is the last feature (features.py appends it).
+    ``n_eff`` and ``bias_reward`` are numbers or (S,) tensors.
     Returns A (S, d, d), b (S, d)."""
     d = cfg.d
     lam0 = hp.lambda0
@@ -55,30 +65,39 @@ def add_arm(
     cfg: RouterConfig,
     state: RouterState,
     slot: int,
-    price_per_req: float,
-    price_per_1k: float,
+    price_per_req,
+    price_per_1k,
     *,
     prior: Optional[ArmPrior] = None,
-    n_eff: Optional[float] = None,
-    bias_reward: float = 0.5,
+    n_eff=None,
+    bias_reward=0.5,
     forced_exploration: bool = True,
 ) -> RouterState:
-    """Register a model into ``slot`` of every state at runtime."""
+    """Register a model into ``slot`` of every state at runtime.
+
+    ``price_per_req``, ``price_per_1k``, ``n_eff`` and ``bias_reward`` are
+    numbers shared by every state or (S,) tensors (a scenario's payloads).
+    A tensor ``n_eff`` cannot be branched on without a device sync, so it
+    always takes the prior or heuristic branch, as a traced one does in
+    the JAX package (the heuristic prior at n_eff = 0 is the cold start).
+    """
     d = cfg.d
     hp = state.hyper
     S = state.num_states
+    dev = state.A.device
+    tensor_ne = isinstance(n_eff, Tensor)
     if prior is not None:
-        A, b = warmup_lib.scale_prior(cfg, hp, prior, n_eff or 1.0)
-    elif n_eff is not None and n_eff > 0:
+        A, b = warmup_lib.scale_prior(cfg, hp, prior,
+                                      n_eff if tensor_ne else (n_eff or 1.0))
+    elif n_eff is not None and (tensor_ne or n_eff > 0):
         A, b = heuristic_prior(cfg, hp, n_eff, bias_reward)
     else:
-        eye = torch.eye(d, dtype=torch.float32, device=state.A.device)
+        eye = torch.eye(d, dtype=torch.float32, device=dev)
         A = eye * lead(hp.lambda0, 3)
-        b = torch.zeros((S, d), dtype=torch.float32, device=state.A.device)
+        b = torch.zeros((S, d), dtype=torch.float32, device=dev)
     A_inv = torch.linalg.inv(A)
     theta = (A_inv @ b[..., None])[..., 0]
-    p1k = torch.full((S, 1), float(price_per_1k), dtype=torch.float32,
-                     device=state.A.device)
+    p1k = _per_state(price_per_1k, S, dev)[:, None]
     c_t = log_normalized_cost(p1k, hp)[:, 0]
     state = dataclasses.replace(
         state,
@@ -89,7 +108,7 @@ def add_arm(
         last_upd=_put(state.last_upd, slot, state.t),
         last_play=_put(state.last_play, slot, state.t),
         active=_put(state.active, slot, True),
-        price=_put(state.price, slot, float(price_per_req)),
+        price=_put(state.price, slot, _per_state(price_per_req, S, dev)),
         c_tilde=_put(state.c_tilde, slot, c_t),
     )
     if forced_exploration:
@@ -122,15 +141,16 @@ def delete_arm(cfg: RouterConfig, state: RouterState, slot: int) -> RouterState:
 
 
 def set_price(cfg: RouterConfig, state: RouterState, slot: int,
-              price_per_req: float, price_per_1k: float) -> RouterState:
+              price_per_req, price_per_1k) -> RouterState:
     """Reprice an arm (provider price change). The pacer reacts to realised
-    costs automatically; this keeps the hard ceiling and Eq. 6 in sync."""
-    p1k = torch.full((state.num_states, 1), float(price_per_1k),
-                     dtype=torch.float32, device=state.A.device)
+    costs automatically; this keeps the hard ceiling and Eq. 6 in sync.
+    Prices are numbers shared by every state or (S,) tensors."""
+    S, dev = state.num_states, state.A.device
+    p1k = _per_state(price_per_1k, S, dev)[:, None]
     c_t = log_normalized_cost(p1k, state.hyper)[:, 0]
     return dataclasses.replace(
         state,
-        price=_put(state.price, slot, float(price_per_req)),
+        price=_put(state.price, slot, _per_state(price_per_req, S, dev)),
         c_tilde=_put(state.c_tilde, slot, c_t),
     )
 

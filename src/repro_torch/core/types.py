@@ -86,23 +86,37 @@ class HyperParams:
         "tiebreak_scale": (lambda v: v >= 0.0, ">= 0"),
     }
 
-    def validate(self) -> "HyperParams":
-        """Range-check every concrete (Python number) field, raising
-        ``ValueError``; tensor leaves pass (``gamma`` is also clamped at
-        runtime, ``linucb.forgetting_factor``)."""
-        for name in HYPER_FIELDS:
-            v = getattr(self, name)
+    @staticmethod
+    def validate_fields(**fields) -> None:
+        """Range-check the given concrete (Python number) values, raising
+        ``ValueError``; tensor leaves pass unchecked (``gamma`` is also
+        clamped at runtime, ``linucb.forgetting_factor``). Unknown names
+        raise ``TypeError``."""
+        for name, v in fields.items():
+            if name not in HYPER_FIELDS:
+                raise TypeError(f"unknown hyper-parameter: {name!r}")
             if not isinstance(v, (int, float)):
                 continue
             ok, want = HyperParams._RANGES[name]
             if not ok(float(v)):
                 raise ValueError(f"HyperParams.{name}={v!r}: must be {want}")
-        cf, cc = self.c_floor, self.c_ceil
+        cf, cc = fields.get("c_floor"), fields.get("c_ceil")
         if (isinstance(cf, (int, float)) and isinstance(cc, (int, float))
                 and not float(cc) > float(cf)):
             raise ValueError(
                 f"HyperParams.c_ceil={cc!r} must exceed c_floor={cf!r}")
+
+    def validate(self) -> "HyperParams":
+        """Range-check every concrete field (see ``validate_fields``)."""
+        self.validate_fields(**{n: getattr(self, n) for n in HYPER_FIELDS})
         return self
+
+    def updated(self, **overrides) -> "HyperParams":
+        """Copy with ``overrides`` applied (validated when concrete)."""
+        bad = set(overrides) - set(HYPER_FIELDS)
+        if bad:
+            raise TypeError(f"unknown hyper-parameters: {sorted(bad)}")
+        return dataclasses.replace(self, **overrides).validate()
 
     def as_leaves(self, n: int, device) -> "HyperParams":
         """Every field as an (n,) f32 tensor: scalars broadcast, (n,)
@@ -145,6 +159,14 @@ class Statics:
             raise ValueError(f"dt_max={self.dt_max}: need >= 1")
         if self.backend not in BACKENDS:
             raise ValueError(f"backend={self.backend!r}: have {BACKENDS}")
+
+    @property
+    def statics(self) -> "Statics":
+        """The shape-affecting projection: the key of the scenario
+        runners' caches, so configs that differ only in hyper-parameters
+        share one entry."""
+        return Statics(self.d, self.max_arms, self.forced_pulls,
+                       self.dt_max, self.backend)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -246,28 +268,50 @@ def with_hyperparams(state: RouterState, hyper: Optional[HyperParams] = None,
                      **overrides) -> RouterState:
     """Retune a state's hyper-parameters: a full replacement ``hyper`` (a
     scalar or (S,) per field) or field ``overrides`` on the state's
-    current values. Values are range-checked before they become leaves;
-    the merged c_ceil must exceed the merged c_floor in every state."""
+    current values, each a number or an (S,) tensor.
+
+    Numbers are range-checked on the host before they become leaves, and
+    a number given for c_floor or c_ceil is held against the merged other
+    bound (read from the state when it is not overridden). Tensor values
+    pass unchecked and without a device sync, as the JAX package's traced
+    leaves do (``gamma`` is clamped at runtime)."""
     S = state.num_states
     device = state.A.device
     hp = (state.hyper if hyper is None
           else hyper.validate().as_leaves(S, device))
     if overrides:
-        unknown = sorted(set(overrides) - set(HYPER_FIELDS))
-        if unknown:
-            raise TypeError(f"unknown hyper-parameters: {unknown}")
-        for name, v in overrides.items():
-            ok, want = HyperParams._RANGES[name]
-            if not ok(float(v)):
-                raise ValueError(f"HyperParams.{name}={v!r}: must be {want}")
+        HyperParams.validate_fields(**overrides)
         hp = dataclasses.replace(hp, **{
             k: torch.as_tensor(v, dtype=torch.float32, device=device)
             .expand(S).contiguous() for k, v in overrides.items()})
-        if not bool((hp.c_ceil > hp.c_floor).all()):
+        bounds = [overrides[n] for n in ("c_floor", "c_ceil")
+                  if n in overrides]
+        if (bounds and all(isinstance(v, (int, float)) for v in bounds)
+                and not bool((hp.c_ceil > hp.c_floor).all())):
             raise ValueError(
                 "HyperParams.c_ceil must exceed c_floor (merged with the "
                 "state's current values)")
     return dataclasses.replace(state, hyper=hp)
+
+
+def state_where(mask: Tensor, new: RouterState,
+                old: RouterState) -> RouterState:
+    """Per state, ``new`` where ``mask`` (S,) bool is set, else ``old``:
+    every leaf, the pacer's and the hyper-parameters' included."""
+    def pick(a: Tensor, b: Tensor) -> Tensor:
+        return torch.where(lead(mask, a.ndim), a, b)
+
+    def blend(a, b):
+        return type(a)(**{f.name: pick(getattr(a, f.name),
+                                       getattr(b, f.name))
+                          for f in dataclasses.fields(a)})
+
+    out = {}
+    for f in dataclasses.fields(RouterState):
+        a, b = getattr(new, f.name), getattr(old, f.name)
+        out[f.name] = (blend(a, b) if dataclasses.is_dataclass(a)
+                       else pick(a, b))
+    return RouterState(**out)
 
 
 @dataclasses.dataclass(frozen=True)

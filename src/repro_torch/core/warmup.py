@@ -38,15 +38,16 @@ def scale_prior(cfg: RouterConfig, hp: HyperParams, prior: ArmPrior,
       A   = s * A_off + lambda0 * I
       b   = s * b_off + lambda0 * theta_off   (mean-preserving correction)
 
-    Returns A (S, d, d), b (S, d).
+    The prior is one (d, d) / (d,) pair shared by every state, or one per
+    state, (S, d, d) / (S, d). Returns A (S, d, d), b (S, d).
     """
     d = cfg.d
-    if tuple(prior.A_off.shape) != (d, d):
+    if tuple(prior.A_off.shape[-2:]) != (d, d):
         raise ValueError(f"prior A_off shape {tuple(prior.A_off.shape)}")
     lam0 = hp.lambda0
     n_eff = torch.as_tensor(n_eff, dtype=torch.float32,
                             device=lam0.device).expand(lam0.shape)
-    mass = prior.A_off[d - 1, d - 1]
+    mass = prior.A_off[..., d - 1, d - 1]
     s = n_eff / torch.clamp_min(mass, 1e-12)
     theta_off = prior.theta_off
     eye = torch.eye(d, dtype=torch.float32, device=lam0.device)

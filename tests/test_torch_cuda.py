@@ -132,7 +132,66 @@ def test_select_batch_score_backend_on_card(dev):
     assert (dec.scores - ref.scores).abs().max() <= 1e-4
 
 
-ATTN_TOL = {torch.float32: dict(rtol=2e-4, atol=2e-5),
+def _scenario_bench(dev):
+    b = simulator.make_benchmark(
+        seed=0, splits={"train": 256, "val": 16, "test": 128}, device=dev)
+    env4 = simulator.extend_with_flash(b.test, "good_cheap")
+    return env4, evaluate.fit_warmup_priors(RouterConfig(), b.train) + [None]
+
+
+@pytest.mark.parametrize("batch_size", [None, 16])
+def test_scenario_on_card_matches_cpu_plain(dev, batch_size):
+    """A multi-event scenario through the step kernel on the card against
+    the same run through its plain version on the CPU."""
+    from repro_torch.core.scenario import (
+        AddArm, BudgetChange, HyperShift, PriceChange, QualityShift,
+        ScenarioSpec,
+    )
+    env4, priors = _scenario_bench(dev)
+    spec = ScenarioSpec(horizon=192, events=(
+        AddArm(32, 3), PriceChange(64, 2, 1 / 56, recalibrate=True),
+        QualityShift(96, 1, 0.7), BudgetChange(128, 3.0e-4),
+        HyperShift(160, gamma=0.99)), stream_seed_base=50, init_active=3)
+    cpu_priors = [None if p is None else type(p)(p.A_off.cpu(), p.b_off.cpu())
+                  for p in priors]
+    n = step_ops.LAUNCHES[0]
+    got = evaluate.run_scenario(RouterConfig(), spec, env4, 6.6e-4,
+                                seeds=(0, 1, 2), priors=priors, n_eff=1164.0,
+                                batch_size=batch_size)
+    assert step_ops.LAUNCHES[0] > n
+    want = evaluate.run_scenario(RouterConfig(), spec, env4, 6.6e-4,
+                                 seeds=(0, 1, 2), priors=cpu_priors,
+                                 n_eff=1164.0, batch_size=batch_size,
+                                 device="cpu")
+    assert got.bounds == want.bounds
+    assert (got.arms == want.arms).mean() >= 0.99
+    assert abs(got.mean_reward - want.mean_reward) < 1e-3
+
+
+@pytest.mark.parametrize("batch_size", [None, 16])
+def test_timeline_identity_on_card(dev, batch_size):
+    """On the card too, a timeline run is identical to the concrete
+    retimed spec's run on its live steps."""
+    from repro_torch.core.scenario import (
+        AddArm, BudgetChange, PriceChange, ScenarioSpec, Timeline, retime,
+    )
+    env4, priors = _scenario_bench(dev)
+    spec = ScenarioSpec(horizon=192, events=(
+        PriceChange(48, 2, 0.1), AddArm(96, 3), BudgetChange(144, 3.0e-4)),
+        stream_seed_base=51, init_active=3)
+    tl = Timeline((32, 80, 112), horizon=160)
+    kw = dict(seeds=(0, 1, 2), priors=priors, n_eff=1164.0,
+              batch_size=batch_size)
+    base = evaluate.run_scenario(RouterConfig(), retime(spec, tl), env4,
+                                 6.6e-4, **kw)
+    masked = evaluate.run_scenario(RouterConfig(), spec, env4, 6.6e-4,
+                                   timeline=tl, **kw)
+    for f in ("arms", "rewards", "costs", "lams"):
+        np.testing.assert_array_equal(getattr(masked, f), getattr(base, f))
+    assert masked.bounds == base.bounds
+
+
+ATTN_TOL ={torch.float32: dict(rtol=2e-4, atol=2e-5),
             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 # Each output row's max error against that row's RMS (chip_smoke.py's
 # ATTN_ROW_REL_TOL): random inputs give long rows an RMS below the
