@@ -78,7 +78,24 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      identical to the retimed spec's run in blocks of 256 and request by
      request. linucb_step's counters are zeroed before the phase; its
      launches by route must equal what the specs imply (ceil(L / B)
-     blocks a segment, padded steps included).
+     blocks a segment, padded steps included);
+ 11. runs the sweep fabric (core/sweep.py, montecarlo.run_monte_carlo)
+     at the JAX benchmarks' sizes: (a) Fig. 1's seven ceilings plus 1.0 x
+     20 seeds as one stack of 160 states (alpha 0.01, gamma 0.997, fitted
+     priors, the test split), per request (conditions 1.0e-4, 3.0e-4 and
+     1.0 identical to looped evaluate.run calls) and in blocks of 256
+     (all eight identical to their looped runs; chunk_size=40 and a split
+     over devices [cuda:0, cuda:0] identical to the whole stack); (b) the
+     knee grid, 28 (alpha, gamma) cells x 5 budgets x 10 seeds = 1,400
+     states per request on the val split with per-cell n_eff, three
+     conditions identical to looped runs, each cell's AUC; (c) the
+     timeline Monte Carlo, 1,024 sampled timelines of a 240-step spec as
+     one stack, 16 probes identical to run_scenario on their retimed
+     specs, a resampled set through the same cached runner, the bands.
+     Each grid and its looped runs print wall s and decisions/s;
+     linucb_step's counters are zeroed before the phase and its launches
+     by route must equal what the grids imply (one single launch per
+     step per sub-stack, ceil(T / 256) pdl launches per run in blocks).
 
 Prints the kernels JSON line, then the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -142,6 +159,20 @@ BUDGET_TIGHT, BUDGET_MODERATE = 3.0e-4, 6.6e-4
 PARETO_HYPER = dict(alpha=0.01, gamma=0.997)
 TWIN_SEEDS, TWIN_PHASE = tuple(range(6)), 304
 SCENARIO_BLOCK = 256
+
+# The sweep phase's grids, copied from the JAX package's benchmarks:
+# bench_pareto.py:20,36 (seven ceilings plus the unconstrained 1.0, 20
+# seeds), bench_knee.py:45-52,86-135 (the (alpha, gamma) cells, the AUC
+# budgets, 10 seeds, the val split, n_eff from T_adapt = 500 by Eq. 13)
+# and bench_scenarios.py:320-333,357-359 (the Monte Carlo spec at T = 240,
+# 1,024 timelines drawn with seed 11, horizons (180, 240), seeds (0,), a
+# probe of 16).
+BUDGET_SWEEP = (1.0e-4, 2.3e-4, 3.0e-4, 6.6e-4, 1.0e-3, 1.9e-3, 4.0e-3)
+KNEE_ALPHAS = (0.005, 0.01, 0.05, 0.1)
+KNEE_GAMMAS = (0.994, 0.995, 0.996, 0.997, 0.998, 0.999, 1.0)
+KNEE_BUDGETS = (1.0e-4, 3.0e-4, 6.6e-4, 1.9e-3, 6.0e-3)
+KNEE_SEEDS, KNEE_T_ADAPT = tuple(range(10)), 500.0
+MC_T, MC_N, MC_SEED, MC_PROBE = 240, 1024, 11, 16
 
 
 def nvidia_smi() -> str:
@@ -1112,6 +1143,223 @@ def scenario_phase(bench, priors):
     return expect
 
 
+def _identical(got, want, what):
+    """Arms, rewards, costs and lams equal bit for bit."""
+    import numpy as np
+
+    for f in ("arms", "rewards", "costs", "lams"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), (what, f)
+
+
+def _timed(fn):
+    """(result, wall s) of ``fn()`` between two synchronisations."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _wall(label, secs, decisions):
+    print(f"[sweep] {label}: wall {secs:.3f} s, decisions/s "
+          f"{decisions / secs:.1f}")
+
+
+def sweep_pareto(bench, priors, expect):
+    """Phase 11 (a): Fig. 1's eight conditions x 20 seeds as one stack of
+    160 states, per request and in blocks of 256, against looped
+    evaluate.run calls; chunked and split stacks against the whole."""
+    import numpy as np
+
+    from repro_torch.core import evaluate, sweep
+    from repro_torch.core.types import HyperParams, RouterConfig
+
+    cfg = RouterConfig(hyper=HyperParams(**PARETO_HYPER))
+    assert cfg.backend == "fused"
+    test, budgets = bench.test, BUDGET_SWEEP + (1.0,)
+    C, T = len(budgets), test.n
+    kw = dict(seeds=SEEDS, priors=priors, n_eff=N_EFF)
+
+    def launches(n_stacks, bs):
+        for r, n in step_launches([T], bs).items():
+            expect[r] += n * n_stacks
+
+    grid, secs = _timed(lambda: sweep.run_grid(cfg, test, budgets, **kw))
+    launches(1, None)
+    _wall(f"pareto grid {C} x {len(SEEDS)} per request", secs, grid.arms.size)
+    for i, b in enumerate(budgets):
+        res = grid.condition(i)
+        assert np.isfinite(res.rewards).all() and np.isfinite(res.costs).all()
+        print(f"[sweep] pareto budget {b}: compliance "
+              f"{res.compliance(b):.6f}, mean reward {res.mean_reward:.6f}")
+    looped = 0.0
+    for b in (1.0e-4, 3.0e-4, 1.0):
+        ref, secs = _timed(lambda: evaluate.run(cfg, test, b, **kw))
+        launches(1, None)
+        looped += secs
+        _identical(grid.condition(budgets.index(b)), ref, ("per request", b))
+        _wall(f"pareto looped evaluate.run per request at {b}", secs,
+              ref.arms.size)
+    print(f"[sweep] pareto per request: conditions 1.0e-4, 3.0e-4, 1.0 "
+          f"identical to their looped runs; looped wall of the 3 "
+          f"{looped:.3f} s")
+
+    bs = SCENARIO_BLOCK
+    grid, secs = _timed(lambda: sweep.run_grid(cfg, test, budgets,
+                                               batch_size=bs, **kw))
+    launches(1, bs)
+    _wall(f"pareto grid {C} x {len(SEEDS)} in blocks of {bs}", secs,
+          grid.arms.size)
+    looped = 0.0
+    for i, b in enumerate(budgets):
+        ref, secs = _timed(lambda: evaluate.run(cfg, test, b, batch_size=bs,
+                                                **kw))
+        launches(1, bs)
+        looped += secs
+        _identical(grid.condition(i), ref, ("blocks", b))
+    _wall(f"pareto looped evaluate.run in blocks of {bs}, all {C}", looped,
+          grid.arms.size)
+    chunked, secs = _timed(lambda: sweep.run_grid(
+        cfg, test, budgets, batch_size=bs, chunk_size=40, **kw))
+    launches(C * len(SEEDS) // 40, bs)
+    _identical(chunked, grid, "chunk_size=40")
+    _wall(f"pareto grid in blocks of {bs}, chunk_size=40", secs,
+          grid.arms.size)
+    split, secs = _timed(lambda: sweep.run_grid(
+        cfg, test, budgets, batch_size=bs, devices=["cuda:0", "cuda:0"], **kw))
+    launches(2, bs)
+    _identical(split, grid, "devices=[cuda:0, cuda:0]")
+    _wall(f"pareto grid in blocks of {bs}, split over [cuda:0, cuda:0]", secs,
+          grid.arms.size)
+    print(f"[sweep] pareto blocks of {bs}: all {C} conditions identical to "
+          f"their looped runs; chunk_size=40 and the two-part split "
+          f"identical to the whole stack")
+
+
+def sweep_knee(bench, priors, expect):
+    """Phase 11 (b): the knee grid, 28 (alpha, gamma) cells x 5 budgets x
+    10 seeds = 1,400 states per request on the val split, cells as (C,)
+    HyperParams leaves with per-cell n_eff; three conditions against
+    looped evaluate.run calls; each cell's AUC."""
+    import numpy as np
+
+    from repro_torch.core import evaluate, knee, sweep, warmup
+    from repro_torch.core.types import HyperParams, RouterConfig
+
+    cfg, val = RouterConfig(), bench.val
+    cells = [(a, g) for a in KNEE_ALPHAS for g in KNEE_GAMMAS]
+    nb = len(KNEE_BUDGETS)
+    n_effs = [warmup.t_adapt_to_n_eff(KNEE_T_ADAPT, g) for _, g in cells]
+    budgets = [b for _ in cells for b in KNEE_BUDGETS]
+    hyper = HyperParams(
+        alpha=np.asarray([a for a, _ in cells for _ in range(nb)], np.float32),
+        gamma=np.asarray([g for _, g in cells for _ in range(nb)], np.float32))
+    grid, secs = _timed(lambda: sweep.run_grid(
+        cfg, val, budgets, seeds=KNEE_SEEDS, priors=priors, hyper=hyper,
+        n_eff=np.repeat(n_effs, nb)))
+    for r, n in step_launches([val.n], None).items():
+        expect[r] += n
+    assert grid.arms.shape == (len(budgets), len(KNEE_SEEDS), val.n)
+    _wall(f"knee grid {len(budgets)} x {len(KNEE_SEEDS)} = "
+          f"{len(budgets) * len(KNEE_SEEDS)} states per request", secs,
+          grid.arms.size)
+    looped = 0.0
+    for i in (0, 7 * nb + 2, len(budgets) - 1):
+        a, g = cells[i // nb]
+        ref, secs = _timed(lambda: evaluate.run(
+            RouterConfig(hyper=HyperParams(alpha=a, gamma=g)), val,
+            budgets[i], seeds=KNEE_SEEDS, priors=priors,
+            n_eff=n_effs[i // nb]))
+        for r, n in step_launches([val.n], None).items():
+            expect[r] += n
+        looped += secs
+        _identical(grid.condition(i), ref, ("knee", a, g, budgets[i]))
+        _wall(f"knee looped evaluate.run alpha={a} gamma={g} "
+              f"budget={budgets[i]}", secs, ref.arms.size)
+    print(f"[sweep] knee: conditions 0, {7 * nb + 2}, {len(budgets) - 1} "
+          f"identical to their looped runs (looped wall of the 3 "
+          f"{looped:.3f} s)")
+    aucs = {}
+    for c, (a, g) in enumerate(cells):
+        runs = [grid.condition(c * nb + j) for j in range(nb)]
+        costs = np.asarray([max(r.mean_cost, 1e-7) for r in runs])
+        auc = knee.auc_of_frontier(costs, np.asarray([r.mean_reward
+                                                      for r in runs]))
+        assert np.isfinite(auc)
+        aucs[f"{a}/{g}"] = round(float(auc), 6)
+    print(f"[sweep] knee AUC by alpha/gamma: {json.dumps(aucs)}")
+
+
+def sweep_monte_carlo(bench, expect):
+    """Phase 11 (c): the timeline Monte Carlo, 1,024 sampled timelines of
+    a 240-step drift / regression / budget spec as one stack, 16 probes
+    against run_scenario on their retimed specs, a resampled set through
+    the same cached runner."""
+    import numpy as np
+
+    from repro_torch.core import evaluate, montecarlo, scenario
+    from repro_torch.core.scenario import (
+        BudgetChange, PriceChange, QualityShift, ScenarioSpec, retime,
+    )
+    from repro_torch.core.types import HyperParams, RouterConfig
+
+    cfg = RouterConfig(hyper=HyperParams(**PARETO_HYPER))
+    test, T = bench.test, MC_T
+    spec = ScenarioSpec(horizon=T, events=(
+        PriceChange(T // 3, GEMINI, 1 / 56), QualityShift(T // 2, MISTRAL, 0.70),
+        BudgetChange(2 * T // 3, BUDGET_TIGHT)), stream_seed_base=7200)
+    horizons = (3 * T // 4, T)
+    tls = montecarlo.sample_timelines(spec, MC_N, seed=MC_SEED,
+                                      horizons=horizons)
+    kw = dict(seeds=(0,), n_eff=N_EFF)
+    mc, secs = _timed(lambda: montecarlo.run_monte_carlo(
+        cfg, spec, test, BUDGET_MODERATE, tls, **kw))
+    expect["single"] += T
+    live = sum(tl.horizon for tl in tls)
+    _wall(f"monte carlo {MC_N} timelines x {T} steps (padded), "
+          f"{live} live decisions", secs, live)
+    runner = scenario.compiled_timeline_runner(cfg, spec, test, None)
+    looped = 0.0
+    for i in np.linspace(0, MC_N - 1, MC_PROBE).astype(int):
+        rspec = retime(spec, tls[i])
+        ref, secs = _timed(lambda: evaluate.run_scenario(
+            cfg, rspec, test, BUDGET_MODERATE, **kw))
+        expect["single"] += rspec.horizon
+        looped += secs
+        _identical(mc.grid.condition(int(i)), ref, ("timeline", int(i)))
+        assert mc.grid.condition(int(i)).bounds == ref.bounds
+    print(f"[sweep] monte carlo: {MC_PROBE} probe timelines identical to "
+          f"run_scenario on their retimed specs; looped wall of the "
+          f"{MC_PROBE} {looped:.3f} s ({looped / MC_PROBE:.3f} s each)")
+    n_cached = len(scenario._RUNNER_CACHE)
+    again = montecarlo.sample_timelines(spec, MC_N, seed=MC_SEED + 1,
+                                        horizons=horizons)
+    mc2, secs = _timed(lambda: montecarlo.run_monte_carlo(
+        cfg, spec, test, BUDGET_MODERATE, again, **kw))
+    expect["single"] += T
+    assert len(scenario._RUNNER_CACHE) == n_cached
+    assert scenario.compiled_timeline_runner(cfg, spec, test, None) is runner
+    _wall(f"monte carlo resampled (seed {MC_SEED + 1}), same cached runner",
+          secs, sum(tl.horizon for tl in again))
+    for name, m in (("seed 11", mc), ("seed 12", mc2)):
+        assert np.isfinite(m.lags).all() and np.isfinite(m.lifts).all()
+        assert np.isfinite(m.compliance).all() and (m.compliance > 0).all()
+        print(f"[sweep] monte carlo bands ({name}): "
+              f"{json.dumps(m.bands())}")
+
+
+def sweep_phase(bench, priors):
+    """Phase 11: the sweep fabric on the card. Returns linucb_step's
+    launches by route that its runs imply."""
+    expect = {"single": 0, "pdl": 0}
+    sweep_pareto(bench, priors, expect)
+    sweep_knee(bench, priors, expect)
+    sweep_monte_carlo(bench, expect)
+    return expect
+
+
 def main() -> int:
     try:
         import torch
@@ -1434,6 +1682,20 @@ def main() -> int:
     assert scenario_routes == want_routes, (scenario_routes, want_routes)
     assert step_ops.LAUNCHES[0] == sum(want_routes.values())
 
+    # Phase 11: the sweep fabric. linucb_step's counters are zeroed just
+    # before the phase and read just after.
+    step_ops.LAUNCHES[0] = 0
+    for r in step_ops.ROUTE_LAUNCHES:
+        step_ops.ROUTE_LAUNCHES[r] = 0
+    t0 = time.perf_counter()
+    want_routes = sweep_phase(bench, priors)
+    sweep_routes = dict(step_ops.ROUTE_LAUNCHES)
+    print(f"[sweep] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"linucb_step launches {step_ops.LAUNCHES[0]} by route "
+          f"{sweep_routes}, expected from the grids {want_routes}")
+    assert sweep_routes == want_routes, (sweep_routes, want_routes)
+    assert step_ops.LAUNCHES[0] == sum(want_routes.values())
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -1467,6 +1729,7 @@ def main() -> int:
             k["launches_served"] = served_launches[k["name"]]
     kernels[1]["launches_by_route"] = step_routes
     kernels[1]["launches_scenario_by_route"] = scenario_routes
+    kernels[1]["launches_sweep_by_route"] = sweep_routes
     kernels[2]["launches_by_route"] = flash_routes
     kernels[4]["launches_by_route"] = ssd_routes
     print(json.dumps({"kernels": kernels}))

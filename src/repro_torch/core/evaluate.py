@@ -212,7 +212,8 @@ def build_run_streams(
             arrays = [np.broadcast_to(a, (len(seeds),) + a.shape)
                       for a in (xs, rm, cm)]
         env0 = env
-    xs, rm, cm = (torch.as_tensor(np.ascontiguousarray(a), device=device)
+    xs, rm, cm = (torch.as_tensor(np.require(a, requirements=("C", "W")),
+                                  device=device)
                   for a in arrays)
     return xs, rm, cm, env0
 

@@ -1,29 +1,33 @@
-"""Scenario Monte Carlo over randomized timelines (DESIGN.md §12): the
-host statistics.
+"""Scenario Monte Carlo over randomized timelines (DESIGN.md §12).
 
 The paper's §4.2-4.5 adaptation numbers are single-timeline point
-estimates; randomizing *when* a shift arrives gives bands instead. This
-module holds the parts that need no fused grid:
+estimates: one hand-picked step for the repricing, one for the
+regression. Randomizing *when* a shift arrives gives bands instead: with
+the masked timeline runner (``sweep.run_scenario_grid(timelines=...)``)
+thousands of sampled timelines of one spec run as one state stack
+through one cached runner. This module is the statistical layer on top:
 
   * ``sample_timelines`` — draw N valid ``scenario.Timeline``s with
     uniform-random event steps (and optionally random effective
     horizons), aligned to the batched plane's block size, by rejection
     against the retimed spec's own validation;
   * ``adaptation_lag`` — steps after an event until the seed-averaged
-    rolling reward recovers.
-
-Running all timelines as one fused grid (``run_monte_carlo``,
-``MonteCarloResult``) comes with the sweep fabric (``core/sweep.py``),
-which is not ported yet.
+    rolling reward recovers;
+  * ``run_monte_carlo`` — run them all as one grid and reduce to
+    per-timeline metrics (adaptation lag per event, quality lift, budget
+    compliance);
+  * ``MonteCarloResult`` — percentile bands over those metrics.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core import scenario
+from repro_torch.core import scenario, sweep
 from repro_torch.core.scenario import ScenarioSpec, Timeline
+from repro_torch.core.types import RouterConfig
 
 
 def _align_down(t: int, align: int) -> int:
@@ -102,3 +106,73 @@ def adaptation_lag(res, boundary: int, window: int = 32,
     roll = np.convolve(post, np.ones(window) / window, mode="valid")
     hit = np.nonzero(roll >= frac * steady)[0]
     return float(hit[0]) if hit.size else float(post.shape[0])
+
+
+@dataclasses.dataclass(frozen=True)
+class MonteCarloResult:
+    """Per-timeline metrics plus the grid they came from."""
+    grid: "sweep.GridResult"
+    timelines: Tuple[Timeline, ...]
+    budget: float
+    lags: np.ndarray        # (N, E) adaptation lag after each event
+    lifts: np.ndarray       # (N,) final-segment minus opening-segment reward
+    compliance: np.ndarray  # (N,) realised mean cost / ceiling
+
+    @property
+    def n_timelines(self) -> int:
+        return len(self.timelines)
+
+    def bands(self, qs: Sequence[float] = (5, 25, 50, 75, 95)) -> dict:
+        """Percentile bands across sampled timelines, JSON-friendly."""
+        def pct(a):
+            return {f"p{q:g}": np.percentile(a, q, axis=0).tolist()
+                    for q in qs}
+        return {
+            "n_timelines": self.n_timelines,
+            "adaptation_lag": pct(self.lags),
+            "quality_lift": pct(self.lifts),
+            "budget_compliance": pct(self.compliance),
+        }
+
+
+def run_monte_carlo(
+    cfg: RouterConfig,
+    spec: ScenarioSpec,
+    env,
+    budget: float,
+    timelines: Sequence[Timeline],
+    seeds: Sequence[int] = (0,),
+    *,
+    lag_window: int = 32,
+    lag_frac: float = 0.95,
+    **grid_kwargs,
+) -> MonteCarloResult:
+    """All sampled timelines of one spec as one grid, reduced to
+    percentile-band metrics.
+
+    Each timeline is a condition of ``sweep.run_scenario_grid`` at the
+    same initial ``budget`` (``grid_kwargs`` — priors, n_eff, batch_size,
+    devices, chunk_size, device — pass through). Metrics are computed on
+    the effective (padding-trimmed) per-condition slices: ``lags[i, j]``
+    is the windowed-recovery lag after event ``j`` of timeline ``i``;
+    ``lifts[i]`` the final-segment minus opening-segment mean reward;
+    ``compliance[i]`` the realised mean cost over the ceiling."""
+    tls = tuple(timelines)
+    grid = sweep.run_scenario_grid(
+        cfg, spec, env, [budget] * len(tls), seeds=seeds,
+        timelines=tls, **grid_kwargs)
+    E = len(spec.events)
+    lags = np.empty((len(tls), E), np.float64)
+    lifts = np.empty(len(tls), np.float64)
+    comp = np.empty(len(tls), np.float64)
+    for i, tl in enumerate(tls):
+        res = grid.condition(i)
+        for j, t in enumerate(tl.event_ts):
+            lags[i, j] = adaptation_lag(res, t, window=lag_window,
+                                        frac=lag_frac)
+        segs = [res.segment(j) for j in range(res.n_segments)]
+        nonempty = [s for s in segs if s.arms.shape[1] > 0]
+        lifts[i] = nonempty[-1].mean_reward - nonempty[0].mean_reward
+        comp[i] = res.mean_cost / budget
+    return MonteCarloResult(grid=grid, timelines=tls, budget=budget,
+                            lags=lags, lifts=lifts, compliance=comp)

@@ -95,8 +95,7 @@ def add_arm(
         eye = torch.eye(d, dtype=torch.float32, device=dev)
         A = eye * lead(hp.lambda0, 3)
         b = torch.zeros((S, d), dtype=torch.float32, device=dev)
-    A_inv = torch.linalg.inv(A)
-    theta = (A_inv @ b[..., None])[..., 0]
+    A_inv, theta = warmup_lib.ridge_solve(A, b)
     p1k = _per_state(price_per_1k, S, dev)[:, None]
     c_t = log_normalized_cost(p1k, hp)[:, 0]
     state = dataclasses.replace(

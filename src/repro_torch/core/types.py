@@ -294,24 +294,37 @@ def with_hyperparams(state: RouterState, hyper: Optional[HyperParams] = None,
     return dataclasses.replace(state, hyper=hp)
 
 
+def map_leaves(fn, *states):
+    """``fn`` over the matching tensor leaves of one or more states (the
+    pacer's and the hyper-parameters' included), rebuilt into a state:
+    the port's ``jax.tree.map`` over ``RouterState``."""
+    first = states[0]
+    if not dataclasses.is_dataclass(first):
+        return fn(*states)
+    return type(first)(**{
+        f.name: map_leaves(fn, *(getattr(s, f.name) for s in states))
+        for f in dataclasses.fields(first)})
+
+
 def state_where(mask: Tensor, new: RouterState,
                 old: RouterState) -> RouterState:
     """Per state, ``new`` where ``mask`` (S,) bool is set, else ``old``:
     every leaf, the pacer's and the hyper-parameters' included."""
-    def pick(a: Tensor, b: Tensor) -> Tensor:
-        return torch.where(lead(mask, a.ndim), a, b)
+    return map_leaves(lambda a, b: torch.where(lead(mask, a.ndim), a, b),
+                      new, old)
 
-    def blend(a, b):
-        return type(a)(**{f.name: pick(getattr(a, f.name),
-                                       getattr(b, f.name))
-                          for f in dataclasses.fields(a)})
 
-    out = {}
-    for f in dataclasses.fields(RouterState):
-        a, b = getattr(new, f.name), getattr(old, f.name)
-        out[f.name] = (blend(a, b) if dataclasses.is_dataclass(a)
-                       else pick(a, b))
-    return RouterState(**out)
+def state_slice(state: RouterState, start: int, stop: int) -> RouterState:
+    """States ``[start:stop]`` of a stack, every leaf a view."""
+    return map_leaves(lambda a: a[start:stop], state)
+
+
+def state_concat(states: Sequence[RouterState], device=None) -> RouterState:
+    """Stacks joined along the state axis, in order, on ``device``
+    (default: the first stack's)."""
+    device = states[0].A.device if device is None else torch.device(device)
+    return map_leaves(lambda *ls: torch.cat([a.to(device) for a in ls]),
+                      *states)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -56,6 +56,27 @@ def scale_prior(cfg: RouterConfig, hp: HyperParams, prior: ArmPrior,
     return A, b
 
 
+def ridge_solve(A: Tensor, b: Tensor):
+    """(A^-1, A^-1 b) for a stack of systems A (S, d, d), b (S, d),
+    solved once per distinct (A, b) pair, one system per call, and handed
+    to every state that holds it.
+
+    A state's bits then do not depend on the stack it sits in: the
+    batched product ``A^-1 @ b`` picks its route by batch size (cuBLAS on
+    the card, one system against several on the CPU), and a grid's warm
+    start must equal its looped run's bit for bit. Finding the distinct
+    pairs costs one device sync."""
+    S, d = b.shape
+    rows = torch.cat([A.reshape(S, d * d), b], dim=1)
+    uniq, where = torch.unique(rows, dim=0, return_inverse=True)
+    invs, thetas = [], []
+    for row in uniq:
+        inv = torch.linalg.inv(row[:d * d].reshape(1, d, d))
+        invs.append(inv[0])
+        thetas.append((inv @ row[d * d:].reshape(1, d, 1))[0, :, 0])
+    return torch.stack(invs)[where], torch.stack(thetas)[where]
+
+
 def apply_warmup(
     cfg: RouterConfig,
     state: RouterState,
@@ -70,9 +91,8 @@ def apply_warmup(
         if prior is None:
             continue
         A_k, b_k = scale_prior(cfg, state.hyper, prior, n_eff)
-        Ainv_k = torch.linalg.inv(A_k)
-        A[:, k], A_inv[:, k], b[:, k] = A_k, Ainv_k, b_k
-        theta[:, k] = (Ainv_k @ b_k[..., None])[..., 0]
+        A[:, k], b[:, k] = A_k, b_k
+        A_inv[:, k], theta[:, k] = ridge_solve(A_k, b_k)
     return dataclasses.replace(state, A=A, A_inv=A_inv, b=b, theta=theta)
 
 

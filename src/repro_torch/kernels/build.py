@@ -20,6 +20,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -29,6 +30,9 @@ FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libport_kernels.so"
 
 _LIB = None
+# The sweep fabric's parts run from one thread per device, and the first
+# of them to launch a kernel loads the library.
+_LIB_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -112,23 +116,28 @@ def library() -> ctypes.CDLL:
     ``c_void_p``, sizes, modes and dtype codes as ``c_int``, the attention
     scale as ``c_float``, tensor strides as ``c_longlong``."""
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        P, I = ctypes.c_void_p, ctypes.c_int
-        lib.linucb_score_launch.argtypes = [P] * 7 + [I] * 5 + [P]
-        lib.linucb_score_launch.restype = I
-        lib.linucb_step_launch.argtypes = [P] * 34 + [I] * 7 + [P]
-        lib.linucb_step_launch.restype = I
-        F = ctypes.c_float
-        lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 8 + [F, I, P]
-        lib.flash_attention_launch.restype = I
-        lib.flash_attention_tc_launch.argtypes = [P] * 4 + [I] * 8 + [F, P]
-        lib.flash_attention_tc_launch.restype = I
-        lib.decode_attention_launch.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
-        lib.decode_attention_launch.restype = I
-        LL = ctypes.c_longlong
-        lib.ssd_scan_launch.argtypes = ([P] * 10 + [I] * 6 + [LL] * 6
-                                        + [I] * 4 + [P])
-        lib.ssd_scan_launch.restype = I
-        _LIB = lib
+    with _LIB_LOCK:
+        if _LIB is None:
+            _LIB = _load()
     return _LIB
+
+
+def _load() -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build()))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.linucb_score_launch.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.linucb_score_launch.restype = I
+    lib.linucb_step_launch.argtypes = [P] * 34 + [I] * 7 + [P]
+    lib.linucb_step_launch.restype = I
+    F = ctypes.c_float
+    lib.flash_attention_launch.argtypes = [P] * 4 + [I] * 8 + [F, I, P]
+    lib.flash_attention_launch.restype = I
+    lib.flash_attention_tc_launch.argtypes = [P] * 4 + [I] * 8 + [F, P]
+    lib.flash_attention_tc_launch.restype = I
+    lib.decode_attention_launch.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
+    lib.decode_attention_launch.restype = I
+    LL = ctypes.c_longlong
+    lib.ssd_scan_launch.argtypes = ([P] * 10 + [I] * 6 + [LL] * 6
+                                    + [I] * 4 + [P])
+    lib.ssd_scan_launch.restype = I
+    return lib

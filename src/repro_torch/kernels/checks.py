@@ -6,6 +6,9 @@ import torch
 # Compile-time limits of csrc/linucb_common.cuh (kMaxD, kMaxK).
 MAX_D = 128
 MAX_K = 64
+# The LinUCB kernels put the state axis on gridDim.y (linucb_step.cu) or
+# gridDim.z (linucb_common.cuh), which CUDA caps at 65,535 blocks.
+MAX_STATES = 65535
 # Compile-time limits of csrc/attention_common.cuh (kMaxHd) and
 # csrc/decode_attention.cu (kMaxG, kMaxOut), and the attention kernels'
 # input types.
@@ -37,10 +40,16 @@ def cuda_operands(name: str, skd: tuple, **operands) -> None:
     device with the given shape and dtype (default f32), and (K, d) are
     within the kernels' limits. ``operands`` maps a name to
     (tensor, shape) or (tensor, shape, dtype)."""
-    _, K, d = skd
+    S, K, d = skd
     if not (1 <= d <= MAX_D and 1 <= K <= MAX_K):
         raise ValueError(f"{name}: kernel takes 1 <= d <= {MAX_D} and "
                          f"1 <= K <= {MAX_K}; got d={d}, K={K}")
+    if S > MAX_STATES:
+        raise ValueError(
+            f"{name}: kernel takes at most {MAX_STATES} states (its grid's "
+            f"state axis); got S={S}. Run the stack in sub-stacks, e.g. "
+            f"sweep.run_grid(..., chunk_size=sweep.fit_chunk(S, "
+            f"{MAX_STATES}))")
     _check(name, torch.float32, operands)
 
 

@@ -7,6 +7,8 @@ they are, one pointer each.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels import checks
@@ -19,6 +21,8 @@ from repro_torch.kernels.linucb_step.ref import linucb_step_ref
 # same by route (kernel.route: one launch for B <= 1, two chained above).
 LAUNCHES = [0]
 ROUTE_LAUNCHES = dict.fromkeys(ROUTES, 0)
+# The sweep fabric launches from one thread per device.
+_COUNT_LOCK = threading.Lock()
 
 # Operand names in call order, and the dtypes that are not f32.
 OPERANDS = ("A", "A_inv", "b", "theta", "last_upd", "X", "rewards", "costs",
@@ -70,6 +74,7 @@ def _launch(ins, dt_max: int):
             vec(), vec())
     linucb_step_blocked(ins, outs, scores_workspace(S, B, K, X.device),
                         num_valid=B, dt_max=dt_max)
-    LAUNCHES[0] += 1
-    ROUTE_LAUNCHES[route(B)] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[0] += 1
+        ROUTE_LAUNCHES[route(B)] += 1
     return outs

@@ -191,6 +191,71 @@ def test_timeline_identity_on_card(dev, batch_size):
     assert masked.bounds == base.bounds
 
 
+def _bitwise(a, b):
+    for f in ("arms", "rewards", "costs", "lams"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)
+
+
+@pytest.fixture
+def warm_grid(dev):
+    """A warm 3-budget x 4-seed grid in blocks of 16 on the card."""
+    from repro_torch.core import sweep
+
+    b = simulator.make_benchmark(
+        seed=0, splits={"train": 256, "val": 16, "test": 128}, device=dev)
+    kw = dict(seeds=(0, 1, 2, 3), priors=evaluate.fit_warmup_priors(
+        RouterConfig(), b.train), n_eff=1164.0, batch_size=16)
+    budgets = (1.0e-4, 6.6e-4, 1.9e-3)
+    n = step_ops.LAUNCHES[0]
+    grid = sweep.run_grid(RouterConfig(), b.test, budgets, **kw)
+    assert step_ops.LAUNCHES[0] == n + 8     # 128 requests, blocks of 16
+    return b.test, budgets, kw, grid
+
+
+def test_sweep_grid_equals_looped_runs_on_card(warm_grid):
+    env, budgets, kw, grid = warm_grid
+    for i, budget in enumerate(budgets):
+        _bitwise(grid.condition(i), evaluate.run(RouterConfig(), env, budget,
+                                                 **kw))
+
+
+@pytest.mark.parametrize("split", [dict(chunk_size=1),
+                                   dict(devices=["cuda:0", "cuda:0"])])
+def test_sweep_sub_stacks_equal_whole_on_card(warm_grid, split):
+    from repro_torch.core import sweep
+
+    env, budgets, kw, grid = warm_grid
+    _bitwise(sweep.run_grid(RouterConfig(), env, budgets, **split, **kw),
+             grid)
+
+
+@pytest.mark.parametrize("n", [1, 7, 20, 1400])
+def test_warm_start_bits_do_not_depend_on_the_stack(dev, n):
+    """Seed 0's warm start in an n-state stack equals it in a 160-state
+    stack (the batched product A^-1 b takes other routes at 1, 2-160 and
+    1,400 systems on the H100; ``warmup.ridge_solve`` does not)."""
+    b = simulator.make_benchmark(
+        seed=0, splits={"train": 256, "val": 16, "test": 16}, device=dev)
+    priors = evaluate.fit_warmup_priors(RouterConfig(), b.train)
+    kw = dict(priors=priors, n_eff=1164.0)
+    small = evaluate.make_states(RouterConfig(), b.test, 6.6e-4,
+                                 tuple(range(n)), **kw)
+    big = evaluate.make_states(RouterConfig(), b.test, 6.6e-4,
+                               tuple(range(160)), **kw)
+    for name in ("A", "A_inv", "b", "theta"):
+        assert torch.equal(getattr(small, name)[0], getattr(big, name)[0])
+
+
+def test_step_kernel_refuses_more_states_than_its_grid(dev):
+    """Above 65,535 states the kernels' grid cannot launch: the operand
+    check says so and names the remedy (the shapes alone are checked)."""
+    from repro_torch.kernels import checks
+
+    checks.cuda_operands("linucb_step", (checks.MAX_STATES, 8, 26))
+    with pytest.raises(ValueError, match="chunk_size"):
+        checks.cuda_operands("linucb_step", (checks.MAX_STATES + 1, 8, 26))
+
+
 ATTN_TOL ={torch.float32: dict(rtol=2e-4, atol=2e-5),
             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 # Each output row's max error against that row's RMS (chip_smoke.py's
