@@ -95,7 +95,26 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      Each grid and its looped runs print wall s and decisions/s;
      linucb_step's counters are zeroed before the phase and its launches
      by route must equal what the grids imply (one single launch per
-     step per sub-stack, ceil(T / 256) pdl launches per run in blocks).
+     step per sub-stack, ceil(T / 256) pdl launches per run in blocks);
+ 12. runs the tenant plane (core/tenancy.py through evaluate, sweep, the
+     gateway and snapshot persistence) on the test bed of the JAX
+     package's benchmarks/bench_tenants.py at its smoke sizes: prices of
+     1e-4 / 3e-4 / 1e-3 per request, fitted priors, alpha 0.01, gamma
+     0.997, no forced pulls, the "torch" backend (tenant mode refuses
+     the kernels, as the JAX package's Pallas kernels do), blocks of 64
+     under the flash-crowd mix: (a) fold identity at T = 8 and T = 64
+     (n 4,096, seeds 0 and 1), every (seed, tenant) row's lam, c_ema,
+     pulls and spend equal bit for bit to the grouped single-tenant
+     fold; (b) T = 4 compliance (n 32,768, 8 seeds), every tenant's
+     steady-state deviation <= 0.004; (c) a fleet grid of 3 tables x 4
+     seeds (n 8,192) as one run_grid call, identical to the three looped
+     evaluate.run calls, both walls printed; (d) a tenanted gateway (T =
+     4, 32 windows of 16, feedback and learning), saved and restored
+     with elapsed 50: the restored state equals decay_on_restore of the
+     saved one within 1e-6, each tenant's lam decays toward 0 and c_ema
+     toward its budget. The LinUCB kernels' counters are zeroed before
+     the phase and must read 0 after it; a tenant block on "fused" must
+     raise NotImplementedError.
 
 Prints the kernels JSON line, then the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -173,6 +192,22 @@ KNEE_GAMMAS = (0.994, 0.995, 0.996, 0.997, 0.998, 0.999, 1.0)
 KNEE_BUDGETS = (1.0e-4, 3.0e-4, 6.6e-4, 1.9e-3, 6.0e-3)
 KNEE_SEEDS, KNEE_T_ADAPT = tuple(range(10)), 500.0
 MC_T, MC_N, MC_SEED, MC_PROBE = 240, 1024, 11, 16
+
+# The tenant phase's test bed, copied from the JAX package's
+# benchmarks/bench_tenants.py:50-53 (CFG, PRICES_PER_REQ, BUDGETS_T4,
+# COMPLIANCE_LINE), :57-66 (make_benchmark(seed=0) at the 10x price
+# spread, splits 8374 / 1785 / n, fitted priors), :69-76 (the log-uniform
+# budgets of larger fleets), :79-84 (the flash-crowd mix), :87-96
+# (blocks of 64, n_eff 1164) and its smoke sizes (:98, :172, :182-184,
+# :209, :225-227).
+TENANT_PRICES = (1e-4, 3e-4, 1e-3)
+TENANT_BUDGETS_T4 = (1.8e-4, 2.1e-4, 2.4e-4, 2.8e-4)
+TENANT_BAND = (1.8e-4, 2.8e-4)
+COMPLIANCE_LINE = 0.004
+TENANT_BLOCK = 64
+TENANT_SCALES = (1.0, 1.25, 1.5)
+GATEWAY_WINDOWS, GATEWAY_WINDOW, RESTORE_ELAPSED = 32, 16, 50
+RESTORE_TOL = 1e-6
 
 
 def nvidia_smi() -> str:
@@ -1360,6 +1395,271 @@ def sweep_phase(bench, priors):
     return expect
 
 
+def tenant_cfg(backend="torch"):
+    from repro_torch.core.types import HyperParams, RouterConfig
+
+    return RouterConfig(hyper=HyperParams(**PARETO_HYPER), forced_pulls=0,
+                        backend=backend)
+
+
+_TESTBEDS = {}
+
+
+def tenant_testbed(n):
+    """The 10x-spread benchmark with n test prompts and its priors."""
+    import numpy as np
+
+    from repro_torch.core import evaluate, simulator
+
+    if n not in _TESTBEDS:
+        p1k = np.asarray(TENANT_PRICES) * 1e3 / simulator.MEAN_REQ_TOKENS
+        b = simulator.make_benchmark(
+            seed=0, prices_per_1k=p1k,
+            splits={"train": 8374, "val": 1785, "test": n})
+        priors = evaluate.fit_warmup_priors(tenant_cfg(), b.train)
+        _TESTBEDS[n] = (b.test, list(priors)[: b.test.k])
+    return _TESTBEDS[n]
+
+
+def tenant_budgets(T):
+    import numpy as np
+
+    if T == 4:
+        return np.asarray(TENANT_BUDGETS_T4, np.float32)
+    rng = np.random.default_rng(0)
+    lo, hi = np.log(TENANT_BAND[0]), np.log(TENANT_BAND[1])
+    return np.exp(rng.uniform(lo, hi, T)).astype(np.float32)
+
+
+def flash_mix(n, T):
+    from repro_torch.data import synthetic
+
+    return synthetic.flash_crowd_tenant_stream(
+        n, T, hot=min(3, T - 1), start=n // 4, stop=n // 2, boost=8.0,
+        seed=7)
+
+
+def run_fleet(n, T, seeds):
+    """One tenant fleet through evaluate.run: (res, finals, budgets, tids,
+    wall s)."""
+    import numpy as np
+
+    from repro_torch.core import evaluate, tenancy
+
+    env, priors = tenant_testbed(n)
+    budgets, tids = tenant_budgets(T), flash_mix(n, T)
+    (res, finals), secs = _timed(lambda: evaluate.run(
+        tenant_cfg(), env, 1.0, seeds, batch_size=TENANT_BLOCK,
+        priors=priors, n_eff=N_EFF, tenants=tenancy.make_table(budgets),
+        tenant_ids=tids, return_states=True))
+    assert res.arms.shape == (len(seeds), n)
+    assert np.isfinite(res.costs).all() and np.isfinite(res.lams).all()
+    return res, finals, budgets, tids, secs
+
+
+def _tenant_wall(label, secs, decisions):
+    print(f"[tenants] {label}: wall {secs:.3f} s, decisions/s "
+          f"{decisions / secs:.1f}")
+
+
+def tenant_fold_identity(T, n=4096, seeds=(0, 1)):
+    """Phase 12 (a): every (seed, tenant) row of the fleet's final table
+    equals folding that tenant's cost subsequence through the
+    single-tenant pacer_update_batch on the card, bit for bit; spend the
+    arrival-order f32 sum."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import pacer
+    from repro_torch.core.types import PacerState
+
+    res, finals, budgets, tids, secs = run_fleet(n, T, seeds)
+    _tenant_wall(f"fold identity T={T} n={n} seeds={len(seeds)}", secs,
+                 res.arms.size)
+    tab = finals.tenants
+    dev = tab.lam.device
+    hp = tenant_cfg().hyper.as_leaves(1, dev)
+    got = {k: getattr(tab, k).cpu().numpy()
+           for k in ("lam", "c_ema", "pulls", "spend")}
+    for s in range(len(seeds)):
+        for j in range(T):
+            cs = np.asarray(res.costs[s][tids == j], np.float32)
+            b = torch.full((1,), float(budgets[j]), device=dev)
+            p0 = PacerState(lam=torch.zeros(1, device=dev), c_ema=b.clone(),
+                            budget=b, enabled=torch.ones(1, dtype=torch.bool,
+                                                         device=dev))
+            pf = pacer.pacer_update_batch(
+                hp, p0, torch.as_tensor(cs, device=dev)[None])
+            assert got["lam"][s, j] == pf.lam.item(), (T, s, j, "lam")
+            assert got["c_ema"][s, j] == pf.c_ema.item(), (T, s, j, "c_ema")
+            assert int(got["pulls"][s, j]) == len(cs), (T, s, j, "pulls")
+            spend = np.float32(0.0)
+            for c in cs:                 # the same arrival-order f32 adds
+                spend = np.float32(spend + c)
+            assert got["spend"][s, j] == spend, (T, s, j, "spend")
+    print(f"[tenants] fold identity T={T}: {len(seeds) * T} (seed, tenant) "
+          f"rows, lam / c_ema / pulls / spend equal bit for bit to the "
+          f"grouped single-tenant folds; lam range "
+          f"[{got['lam'].min():.6f}, {got['lam'].max():.6f}]")
+    return res.arms.size, secs
+
+
+def tenant_compliance(n=32768, T=4, seeds=tuple(range(8))):
+    """Phase 12 (b): per-tenant |steady-state mean cost / ceiling - 1|
+    over the second half of the stream, seeds pooled."""
+    import numpy as np
+
+    res, _finals, budgets, tids, secs = run_fleet(n, T, seeds)
+    _tenant_wall(f"compliance T={T} n={n} seeds={len(seeds)}", secs,
+                 res.arms.size)
+    costs = np.asarray(res.costs, np.float64)
+    window = np.arange(n) >= n // 2
+    devs = [abs(float(costs[:, (tids == j) & window].mean() / budgets[j])
+                - 1.0) for j in range(T)]
+    print(f"[tenants] compliance T={T}: per-tenant deviation "
+          f"{[round(d, 6) for d in devs]}, max {max(devs):.6f} (gate <= "
+          f"{COMPLIANCE_LINE})")
+    assert max(devs) <= COMPLIANCE_LINE, f"T={T} compliance breached: {devs}"
+    return res.arms.size, secs
+
+
+def tenant_fleet_grid(n=8192, seeds=tuple(range(4))):
+    """Phase 12 (c): a (tenant-table x seed) fleet grid as one run_grid
+    call against the looped evaluate.run calls: identical, both walls."""
+    import numpy as np
+
+    from repro_torch.core import evaluate, sweep, tenancy
+
+    env, priors = tenant_testbed(n)
+    tids = flash_mix(n, 4)
+    tables = [tenancy.make_table(tenant_budgets(4) * np.float32(f))
+              for f in TENANT_SCALES]
+    kw = dict(priors=priors, n_eff=N_EFF, batch_size=TENANT_BLOCK)
+    C = len(TENANT_SCALES)
+    grid, grid_s = _timed(lambda: sweep.run_grid(
+        tenant_cfg(), env, [1.0] * C, seeds,
+        tenant_tables=tenancy.stack_tables(tables), tenant_ids=tids, **kw))
+    runs, looped_s = _timed(lambda: [evaluate.run(
+        tenant_cfg(), env, 1.0, seeds, tenants=t, tenant_ids=tids, **kw)
+        for t in tables])
+    for i in range(C):
+        _identical(grid.condition(i), runs[i], ("fleet grid", i))
+    _tenant_wall(f"fleet grid {C} tables x {len(seeds)} seeds n={n}, one "
+                 f"run_grid call", grid_s, grid.arms.size)
+    _tenant_wall(f"fleet looped evaluate.run x {C}", looped_s, grid.arms.size)
+    print(f"[tenants] fleet grid: all {C} conditions identical to their "
+          f"looped runs; looped / grid wall {looped_s / grid_s:.3f}")
+    return 2 * grid.arms.size, grid_s + looped_s
+
+
+def tenant_gateway():
+    """Phase 12 (d): a tenanted gateway under the flash mix, then save and
+    restore(elapsed=50) against decay_on_restore of the saved state."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.core import evaluate, statehandle, tenancy
+    from repro_torch.serving.gateway import MicroBatcher, RouterGateway
+
+    n = GATEWAY_WINDOWS * GATEWAY_WINDOW
+    env, priors = tenant_testbed(4096)
+    cfg = tenant_cfg()
+    state = evaluate.make_states(
+        cfg, env, 1.0, (0,), priors=priors, n_eff=N_EFF,
+        tenants=tenancy.make_table(tenant_budgets(4)))
+    gw = RouterGateway(cfg, state, batcher=MicroBatcher(
+        max_batch=GATEWAY_WINDOW), tenant_names=["a", "b", "c", "d"])
+    tids = flash_mix(n, 4)
+    X = env.contexts[:n].astype(np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for w in range(GATEWAY_WINDOWS):
+        rows = range(w * GATEWAY_WINDOW, (w + 1) * GATEWAY_WINDOW)
+        out = [gw.submit(i, X[i], tenant=int(tids[i])) for i in rows]
+        res = out[-1]
+        assert res is not None and all(o is None for o in out[:-1])
+        arms = np.asarray(res.arms)
+        idx = np.asarray(list(rows))
+        assert gw.enqueue_feedback(list(rows), arms, env.rewards[idx, arms],
+                                   env.costs[idx, arms]) == GATEWAY_WINDOW
+        assert gw.learn_tick() is not None
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tab = gw.live_state.tenants
+    assert tab.pulls[0].tolist() == np.bincount(tids, minlength=4).tolist()
+    m = gw.metrics()
+    lams = [round(m[f"tenant_lam_{j}"], 6) for j in range(4)]
+    comp = [round(m[f"tenant_compliance_{j}"], 4) for j in range(4)]
+    print(f"[tenants] gateway: {GATEWAY_WINDOWS} windows of {GATEWAY_WINDOW} "
+          f"routed, fed back and learned in {secs:.3f} s ({n / secs:.1f} "
+          f"decisions/s); tenant lam {lams}, compliance {comp}")
+    snap_dir = os.path.join(ROOT, "build", "tenant_snapshot")
+    os.makedirs(snap_dir, exist_ok=True)
+    try:
+        path = os.path.join(snap_dir, "router")
+        saved = gw.save(path).state
+        gw.restore(path, elapsed=RESTORE_ELAPSED)
+    finally:
+        shutil.rmtree(snap_dir, ignore_errors=True)
+    want = interop.state_to_numpy(
+        statehandle.decay_on_restore(cfg, saved, RESTORE_ELAPSED))
+    got = interop.state_to_numpy(gw.live_state)
+    worst = 0.0
+    for k, v in want.items():
+        for name, w_ in (v.items() if isinstance(v, dict) else [(k, v)]):
+            g_ = got[k][name] if isinstance(v, dict) else got[k]
+            err = float(np.max(np.abs(g_.astype(np.float64)
+                                      - w_.astype(np.float64))))
+            assert err <= RESTORE_TOL * (1 + float(np.max(np.abs(w_)))), (
+                k, name, err)
+            worst = max(worst, err)
+    now, before = gw.live_state.tenants, saved.tenants
+    assert bool((now.lam <= before.lam).all())
+    assert bool((now.lam < before.lam)[before.lam > 0].all())
+    assert bool(((now.c_ema - now.budget).abs()
+                 <= (before.c_ema - before.budget).abs()).all())
+    assert torch.equal(now.pulls, before.pulls)
+    print(f"[tenants] gateway restore(elapsed={RESTORE_ELAPSED}): every leaf "
+          f"within {RESTORE_TOL} of decay_on_restore of the saved state "
+          f"(max |diff| {worst:.3e}); lam {before.lam[0].tolist()} -> "
+          f"{now.lam[0].tolist()}, c_ema {before.c_ema[0].tolist()} -> "
+          f"{now.c_ema[0].tolist()}")
+    return n, secs
+
+
+def tenant_phase():
+    """Phase 12: the tenant plane on the card. Returns the phase's
+    decisions and wall s by sub-phase."""
+    import torch
+
+    from repro_torch.core import evaluate, router, tenancy
+
+    walls = {}
+    for T in (8, 64):
+        walls[f"fold_T{T}"] = tenant_fold_identity(T)
+    walls["compliance_T4"] = tenant_compliance()
+    walls["fleet"] = tenant_fleet_grid()
+    walls["gateway"] = tenant_gateway()
+    # The kernels take one dual per state: a tenant block on "fused" is
+    # refused before it launches anything, as in the JAX package.
+    env, _priors = tenant_testbed(4096)
+    st = evaluate.make_states(tenant_cfg("fused"), env, 1.0, (0,),
+                              tenants=tenancy.make_table(tenant_budgets(4)))
+    X = torch.as_tensor(env.contexts[None, :8], dtype=torch.float32,
+                        device=st.A.device)
+    try:
+        router.select_batch(tenant_cfg("fused"), st, X,
+                            tenant_ids=torch.zeros((1, 8), dtype=torch.long))
+    except NotImplementedError as e:
+        print(f"[tenants] fused backend refuses tenant mode: {e}")
+    else:
+        raise AssertionError("tenant mode on 'fused' did not raise")
+    return walls
+
+
 def main() -> int:
     try:
         import torch
@@ -1696,6 +1996,24 @@ def main() -> int:
     assert sweep_routes == want_routes, (sweep_routes, want_routes)
     assert step_ops.LAUNCHES[0] == sum(want_routes.values())
 
+    # Phase 12: the tenant plane. The LinUCB kernels' counters are zeroed
+    # just before the phase and read just after: tenant mode runs on the
+    # "torch" backend, so both must read 0.
+    score_ops.LAUNCHES[0] = 0
+    step_ops.LAUNCHES[0] = 0
+    for r in step_ops.ROUTE_LAUNCHES:
+        step_ops.ROUTE_LAUNCHES[r] = 0
+    t0 = time.perf_counter()
+    walls = tenant_phase()
+    tenant_launches = {"linucb_score": score_ops.LAUNCHES[0],
+                       "linucb_step": step_ops.LAUNCHES[0]}
+    print(f"[tenants] phase wall {time.perf_counter() - t0:.1f} s; "
+          f"decisions / wall s by sub-phase "
+          f"{json.dumps({k: [n, round(t, 3)] for k, (n, t) in walls.items()})}"
+          f"; LinUCB kernel launches {tenant_launches} (the reference's route: "
+          f"tenant mode runs no kernel)")
+    assert tenant_launches == {"linucb_score": 0, "linucb_step": 0}
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -1730,6 +2048,8 @@ def main() -> int:
     kernels[1]["launches_by_route"] = step_routes
     kernels[1]["launches_scenario_by_route"] = scenario_routes
     kernels[1]["launches_sweep_by_route"] = sweep_routes
+    for k in kernels[:2]:
+        k["launches_tenants"] = tenant_launches[k["name"]]
     kernels[2]["launches_by_route"] = flash_routes
     kernels[4]["launches_by_route"] = ssd_routes
     print(json.dumps({"kernels": kernels}))

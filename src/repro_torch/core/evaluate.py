@@ -10,7 +10,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import prng, router, warmup
+from repro_torch.core import prng, router, tenancy, warmup
 from repro_torch.core import scenario as scenario_lib
 from repro_torch.core.pacer import validate_budget
 from repro_torch.core.simulator import Environment
@@ -113,6 +113,18 @@ def pad_priors(cfg: RouterConfig, priors: Sequence[ArmPrior | None]):
     return list(priors) + [None] * pad
 
 
+def _tenant_stack(tenants: "tenancy.TenantTable", n: int, device):
+    """A tenant table as (n, T) leaves on ``device``: one shared (T,)
+    table copied into every stacked state, or one with (n, T) leaves (a
+    per-state axis, the sweep fabric's flattened grid). Budgets are
+    positivity-checked here (host boundary, one device sync)."""
+    if not bool((tenants.budget > 0.0).all()):
+        raise ValueError(
+            "tenant budgets must be > 0 ($/request ceilings); got "
+            f"min={float(tenants.budget.min())!r}")
+    return tenancy.expand(tenants, n, device)
+
+
 def make_states(
     cfg: RouterConfig,
     env: Environment,
@@ -124,6 +136,7 @@ def make_states(
     pacer_enabled: bool = True,
     active_arms: Optional[int] = None,
     hyper: Optional[HyperParams] = None,
+    tenants: Optional["tenancy.TenantTable"] = None,
     device=None,
 ) -> RouterState:
     """A stack of initial states, one per seed, with key
@@ -133,6 +146,10 @@ def make_states(
     shared by every state or one value per seed. A warm stack (priors
     given and some ``n_eff`` > 0) must be warm in every state: warm-up at
     n_eff = 0 is not a no-op.
+
+    ``tenants`` attaches a per-tenant pacer table (DESIGN.md §15): one
+    shared (T,) ``tenancy.TenantTable`` copied into every state, or one
+    with (len(seeds), T) leaves for a per-state tenant axis.
     """
     device = resolve_device(device)
     k = env.k
@@ -164,7 +181,9 @@ def make_states(
     state = init_state(
         cfg, preq, p1k, np.broadcast_to(b_host, (S,)), key=keys,
         active=active, pacer_enabled=pacer_enabled, hyper=hyper,
-        device=device)
+        device=device,
+        tenants=None if tenants is None else _tenant_stack(tenants, S,
+                                                           device))
     if warm:
         ne_t = torch.as_tensor(ne, device=device)
         state = warmup.apply_warmup(cfg, state, pad_priors(cfg, priors), ne_t)
@@ -245,10 +264,16 @@ def run(
     the batched data plane in blocks of that size; None is the
     per-request closed loop (blocks of one). ``states`` continues from a
     given stack instead of fresh states. ``device`` defaults to the card.
-    Tenant runs are not ported yet and raise ``NotImplementedError``.
+
+    ``tenants`` + ``tenant_ids`` switch the run to the tenant plane
+    (DESIGN.md §15): ``tenants`` is a shared (T,) or per-seed (S, T)
+    ``tenancy.TenantTable`` and ``tenant_ids`` tags each stream step with
+    its tenant — (L,) shared by every seed or (S, L) per seed. Requires
+    ``batch_size`` (tenant routing runs on the batched data plane) and
+    the ``torch`` backend (``router._tenant_mode_check``).
     """
-    if tenants is not None or tenant_ids is not None:
-        raise NotImplementedError("tenant runs are not ported yet")
+    if (tenants is None) != (tenant_ids is None) and states is None:
+        raise ValueError("pass tenants and tenant_ids together")
     if states is not None:
         device = states.A.device
     device = resolve_device(device)
@@ -257,8 +282,17 @@ def run(
     if states is None:
         states = make_states(
             cfg, env0, budget, seeds, priors=priors, n_eff=n_eff,
-            pacer_enabled=pacer_enabled, hyper=hyper, device=device)
-    finals, trace = stream_body(cfg, batch_size)(states, xs, rmat, cmat)
+            pacer_enabled=pacer_enabled, hyper=hyper, tenants=tenants,
+            device=device)
+    if tenant_ids is not None:
+        if not batch_size:
+            raise ValueError(
+                "tenant runs need batch_size: tenant routing is a batched-"
+                "data-plane feature (DESIGN.md §15)")
+        finals, trace = stream_body_tenants(cfg, batch_size)(
+            states, xs, rmat, cmat, tenant_ids)
+    else:
+        finals, trace = stream_body(cfg, batch_size)(states, xs, rmat, cmat)
     res = _result(trace)
     if return_states:
         return res, finals
@@ -279,6 +313,17 @@ def stream_body(cfg: RouterConfig, batch_size=None):
     def run(state, x, rm, cm):
         return router.run_stream_batched(cfg, state, x, rm, cm,
                                          batch_size or 1)
+
+    return run
+
+
+def stream_body_tenants(cfg: RouterConfig, batch_size):
+    """Tenant-mode stream program: ``stream_body`` with an (S, L)
+    ``tenant_ids`` operand threaded to the batched data plane."""
+
+    def run(state, x, rm, cm, tids):
+        return router.run_stream_batched(cfg, state, x, rm, cm, batch_size,
+                                         tenant_ids=tids)
 
     return run
 
@@ -319,18 +364,29 @@ def run_scenario(
     the effective horizon, padding the run) through the masked timeline
     runner (DESIGN.md §12): identical to running the concrete retimed
     spec on live steps. Traces and bounds come back cut to the effective
-    horizon. ``device`` defaults to the card. Tenant runs are not ported
-    yet and raise ``NotImplementedError``.
+    horizon. ``device`` defaults to the card.
+
+    ``tenants`` + ``tenant_ids`` run the spec on the tenant plane
+    (DESIGN.md §15): a shared (T,) or per-seed (S, T) table and ids of
+    ``(spec.horizon,)`` shared or ``(len(seeds), spec.horizon)`` per seed
+    (``data.synthetic.tenant_stream_for_spec`` honours the spec's
+    ``TenantMixShift`` events); ``TenantBudgetChange`` edits the table.
+    Needs ``batch_size`` > 1; as in the JAX package, tenant runs do not go
+    through the masked timeline runner.
     """
-    if tenants is not None or tenant_ids is not None:
-        raise NotImplementedError("tenant scenario runs are not ported yet")
+    if (tenants is None) != (tenant_ids is None):
+        raise ValueError("pass tenants and tenant_ids together")
+    if tenants is not None and timeline is not None:
+        raise NotImplementedError(
+            "tenant runs are not wired through the masked timeline "
+            "runner; use the concrete scenario path (timeline=None)")
     device = resolve_device(device)
     params = scenario_lib.resolve_params(spec, scenario_params)
     full = params.updated(**scenario_lib.auto_param_values(spec))
     states = make_states(
         cfg, env, budget, seeds, priors=priors, n_eff=n_eff,
         pacer_enabled=pacer_enabled, active_arms=spec.init_active,
-        hyper=hyper, device=device)
+        hyper=hyper, tenants=tenants, device=device)
     S = len(seeds)
     bp = scenario_lib.broadcast_params(full, S, device)
     if timeline is not None:
@@ -351,8 +407,14 @@ def run_scenario(
     else:
         xs, rmat, cmat = scenario_lib.build_streams(
             cfg, spec, env, seeds, params=params, device=device)
-        run_fn = scenario_lib.compiled_runner(cfg, spec, env, batch_size)
-        finals, trace = run_fn(states, xs, rmat, cmat, bp)
+        run_fn = scenario_lib.compiled_runner(
+            cfg, spec, env, batch_size, with_tenants=tenants is not None)
+        if tenants is not None:
+            tids = router.tenant_id_stack(tenant_ids, S, spec.horizon,
+                                          device)
+            finals, trace = run_fn(states, xs, rmat, cmat, bp, tids)
+        else:
+            finals, trace = run_fn(states, xs, rmat, cmat, bp)
         res = _result(trace, bounds=spec.bounds)
     if return_states:
         return res, finals

@@ -71,20 +71,29 @@ def ucb_scores_batch(
     c_tilde: Tensor,  # (S, K)
     X: Tensor,        # (S, B, d) block of request contexts per state
     dt: Tensor,       # (S, K) staleness per arm, shared by the block
-    lam: Tensor,      # (S,) dual variable
+    lam: Tensor,      # (S,) dual variable, or (S, B) per-request duals
 ) -> Tensor:
     """Eq. 2 scores for a block of B contexts against all arms: (S, B, K).
 
     The plain torch oracle of the data plane; the ``linucb_score`` CUDA
     kernel computes the same quantity on the card.
+
+    ``lam`` may be (S, B) per-request duals (the tenant plane gathers each
+    request's tenant lambda, §15). Only the cost penalty depends on
+    lambda and it is elementwise, so row b of the per-request path is
+    bit-identical to scoring the whole block under ``lam[:, b]``.
     """
     exploit = torch.einsum("sbd,skd->sbk", X, theta)
     t = torch.einsum("sbd,skde->sbke", X, A_inv)
     quad = torch.clamp_min(torch.einsum("sbke,sbe->sbk", t, X), 0.0)
     v = quad / staleness_inflation(cfg, hp, dt)[:, None, :]
+    explore = hp.alpha[:, None, None] * torch.sqrt(v)
+    if lam.ndim == 2:
+        penalty = ((hp.lambda_c[:, None] + lam)[:, :, None]
+                   * c_tilde[:, None, :])                         # (S, B, K)
+        return exploit + explore - penalty
     penalty = (hp.lambda_c + lam)[:, None] * c_tilde              # (S, K)
-    return (exploit + hp.alpha[:, None, None] * torch.sqrt(v)
-            - penalty[:, None, :])
+    return exploit + explore - penalty[:, None, :]
 
 
 def ucb_scores(cfg: RouterConfig, hp: HyperParams, theta: Tensor,

@@ -15,18 +15,25 @@ same bookkeeping), which is how the JAX package's scalar path is kept.
 
 Hyper-parameters are read from ``state.hyper`` ((S,) leaves), never from
 ``cfg``, which contributes only statics (shapes, backend, dt_max,
-forced_pulls). Tenant mode (per-request duals) is not in this port yet:
-passing ``tenant_ids`` raises ``NotImplementedError``.
+forced_pulls).
+
+Tenant mode (DESIGN.md §15): with ``tenant_ids`` (S, B) and a tenant
+table on the state, each request is scored under its tenant's dual and
+hard ceiling and each cost folds into its tenant's pacer only. As in the
+JAX package, where the Pallas kernels refuse it, tenant mode runs on the
+``torch`` backend alone: the ``score`` and ``fused`` kernels take one
+dual per state and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as backend_lib
-from repro_torch.core import linucb, pacer, prng
+from repro_torch.core import linucb, pacer, prng, tenancy
 from repro_torch.core.types import PacerState, RouterConfig, RouterState
 
 Tensor = torch.Tensor
@@ -45,16 +52,40 @@ class Decision(NamedTuple):
 class BatchDecision(NamedTuple):
     arms: Tensor        # (S, B) i32 — chosen arm per request
     scores: Tensor      # (S, B, K) f32 — Eq. 2 + tiebreak (NEG_INF masked)
-    candidates: Tensor  # (S, K) bool candidate set
-    lam: Tensor         # (S,) f32 — dual at block-decision time
+    candidates: Tensor  # (S, K) bool candidate set — (S, B, K) in tenant
+                        # mode, where each row carries its tenant's ceiling
+    lam: Tensor         # (S,) f32 — portfolio dual at block-decision time
     forced: Tensor      # (S, B) bool — forced-exploration override fired
+    # (S, B) f32 per-request tenant duals (tenant mode only, else None).
+    row_lams: Optional[Tensor] = None
 
 
-def _no_tenants(tenant_ids, what: str) -> None:
-    if tenant_ids is not None:
+def _tenant_mode_check(cfg: RouterConfig, state: RouterState, what: str):
+    """Host-side guards for the tenant routing path (DESIGN.md §15)."""
+    if state.tenants is None:
+        raise ValueError(
+            f"{what}: tenant_ids given but state.tenants is None — build "
+            "the state with a tenancy.TenantTable (init_state(tenants=...))")
+    if cfg.backend != "torch":
         raise NotImplementedError(
-            f"{what}: tenant-aware routing (per-request duals) is not "
-            "ported yet; route without tenant_ids")
+            f"{what}: tenant-aware routing needs per-request duals, which "
+            f"the {cfg.backend!r} kernels take as a (K,) operand; use "
+            "backend='torch' for tenant mode (DESIGN.md §15)")
+
+
+def tenant_id_stack(tenant_ids, S: int, B: int, device) -> Tensor:
+    """Tenant ids as an (S, B) int64 tensor on ``device``: (B,) shared by
+    every state, or (S, B) one row per state."""
+    if not isinstance(tenant_ids, Tensor):
+        tenant_ids = np.ascontiguousarray(tenant_ids)
+    tid = torch.as_tensor(tenant_ids, device=device).long()
+    if tid.ndim == 1:
+        tid = tid.expand(S, -1)
+    if tuple(tid.shape) != (S, B):
+        raise ValueError(
+            f"tenant_ids must be ({B},) shared or ({S}, {B}) per-state; "
+            f"got shape {tuple(tid.shape)}")
+    return tid
 
 
 def _tiebreak_noise(cfg: RouterConfig, hp, key: Tensor, B: int):
@@ -108,24 +139,48 @@ def select_batch(cfg: RouterConfig, state: RouterState, X: Tensor,
     chain splits once per request in order, forced burn-in diverts the
     first ``force_left`` requests, ``t`` advances by B. ``argmax`` breaks
     exact ties on the lowest slot.
+
+    With ``tenant_ids`` (S, B) each request is scored under ITS tenant's
+    dual: the tenant plane gathers per-row ``PacerState``s, the cost
+    penalty uses the (S, B) lambdas, and the hard price ceiling is
+    per row — row b is bit-identical to scoring the whole block under
+    tenant ``tenant_ids[:, b]``'s pacer. The portfolio pacer is ignored
+    for scoring in tenant mode.
     """
-    _no_tenants(tenant_ids, "select_batch")
-    B = X.shape[1]
+    S, B = X.shape[:2]
     hp = state.hyper
-    cand = pacer.hard_ceiling_mask(state.pacer, state.price, state.active)
+    row_lams = None
+    if tenant_ids is not None:
+        _tenant_mode_check(cfg, state, "select_batch")
+        tid = tenant_id_stack(tenant_ids, S, B, X.device)
+        rows = tenancy.gather_rows(state.tenants, tid)            # (S, B)
+        K = state.price.shape[1]
+        flat = PacerState(*(getattr(rows, f).reshape(-1) for f in
+                            ("lam", "c_ema", "budget", "enabled")))
+        cand = pacer.hard_ceiling_mask(
+            flat, state.price[:, None].expand(S, B, K).reshape(-1, K),
+            state.active[:, None].expand(S, B, K).reshape(-1, K),
+        ).reshape(S, B, K)
+        lam_op = row_lams = rows.lam
+    else:
+        cand = pacer.hard_ceiling_mask(state.pacer, state.price,
+                                       state.active)              # (S, K)
+        lam_op = state.pacer.lam
     dt = state.t[:, None] - torch.maximum(state.last_upd, state.last_play)
     scores = backend_lib.get_backend(cfg.backend).score(
         cfg, hp, state.theta, state.A_inv, state.c_tilde, X, dt,
-        state.pacer.lam)                                          # (S, B, K)
+        lam_op)                                                   # (S, B, K)
     key, noise = _tiebreak_noise(cfg, hp, state.key, B)
-    masked = torch.where(cand[:, None, :], scores + noise, NEG_INF)
+    cand_rows = cand if cand.ndim == 3 else cand[:, None, :]
+    masked = torch.where(cand_rows, scores + noise, NEG_INF)
     arms = masked.argmax(-1).to(torch.int32)
     idx, farm, forced = _forced_mask(state, B)
     arms = torch.where(forced, farm[:, None], arms)
     new_state = dataclasses.replace(
         state, **_bookkeeping(state, arms, idx, forced, key))
     dec = BatchDecision(arms=arms, scores=masked, candidates=cand,
-                        lam=state.pacer.lam, forced=forced)
+                        lam=state.pacer.lam, forced=forced,
+                        row_lams=row_lams)
     return dec, new_state
 
 
@@ -155,11 +210,23 @@ def update_batch(cfg: RouterConfig, state: RouterState, arms: Tensor,
     """Apply a block of delayed feedback — arms (S, B), X (S, B, d),
     rewards / costs (S, B) — as the sequential fold of ``update``: the
     per-arm rank-1 updates in arrival order (order matters under
-    forgetting), then one pacer pass over the block's costs."""
-    _no_tenants(tenant_ids, "update_batch")
+    forgetting), then one pacer pass over the block's costs.
+
+    With ``tenant_ids`` (S, B) each cost folds into ITS tenant's pacer via
+    ``tenancy.tenant_fold`` — bit-identical to grouping the block by
+    tenant and folding each group through ``pacer_update_batch`` in
+    arrival order. The portfolio pacer is left untouched in tenant mode
+    (it is inert; the tenant rows ARE the duals)."""
+    if tenant_ids is not None:
+        _tenant_mode_check(cfg, state, "update_batch")
+        tid = tenant_id_stack(tenant_ids, *arms.shape, arms.device)
     for i in range(arms.shape[1]):
         state = _apply_feedback(cfg, state, arms[:, i], X[:, i],
                                 rewards[:, i])
+    if tenant_ids is not None:
+        tab = tenancy.tenant_fold(state.hyper, state.tenants, tid,
+                                  costs)                          # l. 25-26
+        return dataclasses.replace(state, tenants=tab)
     p = pacer.pacer_update_batch(state.hyper, state.pacer, costs)  # l. 25-26
     return dataclasses.replace(state, pacer=p)
 
@@ -201,16 +268,22 @@ def step_batch(cfg: RouterConfig, state: RouterState, X: Tensor,
 
     Returns (new_state, (arms, r, c, lam)), each trace (S, B). The fused
     backend runs the block through its kernel; the others go through
-    ``select_batch`` + ``update_batch``.
+    ``select_batch`` + ``update_batch``. In tenant mode the traced ``lam``
+    is each request's tenant dual at block-decision time, and the block
+    always takes the select/update path (``_tenant_mode_check`` rejects
+    the kernel backends before dispatch).
     """
-    _no_tenants(tenant_ids, "step_batch")
     backend = backend_lib.get_backend(cfg.backend)
     if getattr(backend, "fused_step", False):
+        if tenant_ids is not None:
+            _tenant_mode_check(cfg, state, "step_batch")
         return _step_batch_fused(cfg, backend, state, X, rewards, costs)
-    dec, state = select_batch(cfg, state, X)
+    dec, state = select_batch(cfg, state, X, tenant_ids)
     r, c = _gather(rewards, dec.arms), _gather(costs, dec.arms)
-    state = update_batch(cfg, state, dec.arms, X, r, c)
-    return state, (dec.arms, r, c, dec.lam[:, None].expand(-1, X.shape[1]))
+    state = update_batch(cfg, state, dec.arms, X, r, c, tenant_ids)
+    lam = (dec.row_lams if dec.row_lams is not None
+           else dec.lam[:, None].expand(-1, X.shape[1]))
+    return state, (dec.arms, r, c, lam)
 
 
 def select(cfg: RouterConfig, state: RouterState, x: Tensor):
@@ -244,17 +317,21 @@ def run_stream_batched(cfg: RouterConfig, state: RouterState, xs: Tensor,
     """Algorithm 1 over (S, T) request streams in blocks of
     ``batch_size``: xs (S, T, d), rewards / costs (S, T, K). A trailing
     partial block (T mod B requests) runs as one smaller block.
+    ``tenant_ids`` (S, T) tags each request with its tenant (DESIGN.md
+    §15); blocks then route and pace per tenant.
 
     Returns (final_state, (arms, r, c, lam)) with (S, T) traces.
     """
-    _no_tenants(tenant_ids, "run_stream_batched")
     T = xs.shape[1]
+    tids = (None if tenant_ids is None
+            else tenant_id_stack(tenant_ids, xs.shape[0], T, xs.device))
     traces = []
     for t0 in range(0, T, batch_size):
         sl = slice(t0, min(t0 + batch_size, T))
         state, tr = step_batch(cfg, state, xs[:, sl].contiguous(),
                                rewards[:, sl].contiguous(),
-                               costs[:, sl].contiguous())
+                               costs[:, sl].contiguous(),
+                               None if tids is None else tids[:, sl])
         traces.append(tr)
     if not traces:
         raise ValueError("empty request stream")

@@ -340,9 +340,11 @@ class TrafficMixShift:
 
 @dataclasses.dataclass(frozen=True)
 class TenantBudgetChange:
-    """Operator retargets ONE tenant's ceiling at step ``t`` (DESIGN.md
-    §15). Tenant tables are not ported yet: a spec may hold this event,
-    but running it raises ``NotImplementedError``."""
+    """Operator retargets ONE tenant's ceiling to ``budget`` $/req at
+    step ``t`` (DESIGN.md §15). A state edit on the tenant's column of
+    ``RouterState.tenants`` — requires the state to carry a
+    ``tenancy.TenantTable``. ``budget`` may be a ``Param``; concrete
+    values auto-lift onto ``__auto{i}`` leaves like ``BudgetChange``."""
 
     t: int
     tenant: int
@@ -352,9 +354,11 @@ class TenantBudgetChange:
 @dataclasses.dataclass(frozen=True)
 class TenantMixShift:
     """From step ``t``, requests are tagged with tenants drawn with the
-    given ``(T,)`` weights (DESIGN.md §15). Tenant streams are not ported
-    yet: running a spec that holds this event raises
-    ``NotImplementedError``."""
+    given ``(T,)`` ``weights`` (proportional sampling; None restores the
+    uniform tenant draw). A host-side *stream* event: it shapes the
+    tenant-id overlay built by ``data/synthetic.py``'s
+    ``tenant_stream_for_spec``, not the state — the scenario engine
+    itself only uses its time as a segment boundary (DESIGN.md §15)."""
 
     t: int
     weights: Optional[Tuple[float, ...]]
@@ -367,15 +371,6 @@ Event = Union[
 
 _STATE_EVENTS = (PriceChange, AddArm, DeleteArm, BudgetChange, HyperShift,
                  TenantBudgetChange)
-_TENANT_EVENTS = (TenantBudgetChange, TenantMixShift)
-
-
-def _no_tenant_events(spec: "ScenarioSpec") -> None:
-    bad = [type(e).__name__ for e in spec.events
-           if isinstance(e, _TENANT_EVENTS)]
-    if bad:
-        raise NotImplementedError(
-            f"{sorted(set(bad))}: tenant scenarios are not ported yet")
 
 
 # ---------------------------------------------------------------------------
@@ -1106,6 +1101,22 @@ def _one_edit(cfg: RouterConfig, spec: ScenarioSpec, i: int,
         ref = _budget_ref(spec, i)
         return lambda st, ps: dataclasses.replace(
             st, pacer=pacer_lib.set_budget(st.pacer, ps.get(ref.name)))
+    if isinstance(e, TenantBudgetChange):
+        ref = _budget_ref(spec, i)
+        tenant = e.tenant
+
+        def tenant_budget(st, ps):
+            if st.tenants is None:
+                raise ValueError(
+                    f"TenantBudgetChange(t={e.t}, tenant={tenant}) needs "
+                    "a tenant table on the state: build it with "
+                    "init_state(tenants=tenancy.make_table(...))")
+            b = st.tenants.budget.clone()
+            b[:, tenant] = ps.get(ref.name).to(b)
+            return dataclasses.replace(
+                st, tenants=dataclasses.replace(st.tenants, budget=b))
+
+        return tenant_budget
     if isinstance(e, HyperShift):
         ov = e.overrides()
         if not ov:
@@ -1296,7 +1307,6 @@ def timeline_body(cfg: RouterConfig, spec: ScenarioSpec,
     statistics advance exactly as the concrete retimed spec's run on live
     steps. The router steps on padding too, as the JAX scan does; masks
     come from the host, so no step waits on the device."""
-    _no_tenant_events(spec)
     edits = _timeline_edits(cfg, spec, env)
     tf = _timeline_stream_tfs(spec, env)
     B = batch_size if batch_size is not None and batch_size > 1 else 1
@@ -1358,18 +1368,27 @@ _RUNNER_CACHE_MAX = 64
 
 
 def segment_body(cfg: RouterConfig, seg_lens, edits, batch_size,
-                 stream_tfs=None):
+                 stream_tfs=None, with_tenants: bool = False):
     """The segmented program over a state stack: per segment, its edit
     (if any) on the whole stack, its stream transform (if any), then one
     ``router.run_stream_batched`` call in blocks of ``batch_size`` (or
     one request at a time). ``edits`` and ``stream_tfs`` take the (S,)
     ``ScenarioParams`` (payloads as data, DESIGN.md §10). Returns
     ``run(state, xs, rmat, cmat, params) -> (final_state, (arms, r, c,
-    lam))`` with (S, T) traces."""
+    lam))`` with (S, T) traces.
+
+    ``with_tenants`` adds an (S, horizon) tenant-id operand, ``run(...,
+    params, tids)``, sliced per segment and threaded to the batched data
+    plane (DESIGN.md §15; requires ``batch_size`` > 1)."""
     tfs = stream_tfs if stream_tfs is not None else (None,) * len(seg_lens)
+    if with_tenants and not (batch_size is not None and batch_size > 1):
+        raise ValueError(
+            "tenant scenario runs need batch_size > 1: tenant routing is "
+            "a batched-data-plane feature (DESIGN.md §15)")
     B = batch_size if batch_size is not None and batch_size > 1 else 1
 
-    def run(state: RouterState, xs, rmat, cmat, params: ScenarioParams):
+    def run(state: RouterState, xs, rmat, cmat, params: ScenarioParams,
+            tids=None):
         traces, off = [], 0
         for L, edit, tf in zip(seg_lens, edits, tfs):
             if edit is not None:
@@ -1378,8 +1397,9 @@ def segment_body(cfg: RouterConfig, seg_lens, edits, batch_size,
                    cmat[:, off:off + L])
             if tf is not None:
                 seg = tf(*seg, params)
-            state, tr = router.run_stream_batched(cfg, state, *seg,
-                                                  batch_size=B)
+            state, tr = router.run_stream_batched(
+                cfg, state, *seg, batch_size=B,
+                tenant_ids=None if tids is None else tids[:, off:off + L])
             traces.append(tr)
             off += L
         return state, tuple(torch.cat(p, dim=1) for p in zip(*traces))
@@ -1388,13 +1408,13 @@ def segment_body(cfg: RouterConfig, seg_lens, edits, batch_size,
 
 
 def spec_body(cfg: RouterConfig, spec: ScenarioSpec,
-              env: simulator.Environment, batch_size=None):
+              env: simulator.Environment, batch_size=None,
+              with_tenants: bool = False):
     """``segment_body`` built from a spec (edits + segment lengths +
     stream transforms for parameterized payloads)."""
-    _no_tenant_events(spec)
     seg_lens = tuple(b - a for a, b in spec.segments)
     return segment_body(cfg, seg_lens, _edit_fns(cfg, spec, env),
-                        batch_size, _stream_tfs(spec, env))
+                        batch_size, _stream_tfs(spec, env), with_tenants)
 
 
 def _env_sig(env: simulator.Environment):
@@ -1409,15 +1429,19 @@ def compiled_runner(
     spec: ScenarioSpec,
     env: simulator.Environment,
     batch_size: Optional[int] = None,
+    with_tenants: bool = False,
 ):
-    """Cached runner for (statics, spec structure, env, batch size): the
-    built closures of ``spec_body``. Budgets, priors, seeds, hyper-
-    parameters and ``Param`` payload values are data (state leaves and
-    ``ScenarioParams``), and concrete operand payloads are auto-lifted,
-    so a spec family differing only in values shares one runner."""
-    key = (cfg.statics, runner_spec_key(spec), _env_sig(env), batch_size)
+    """Cached runner for (statics, spec structure, env, batch size,
+    tenant mode): the built closures of ``spec_body``. Budgets, priors,
+    seeds, hyper-parameters, tenant tables and ``Param`` payload values
+    are data (state leaves and ``ScenarioParams``), and concrete operand
+    payloads are auto-lifted, so a spec family differing only in values
+    shares one runner."""
+    key = (cfg.statics, runner_spec_key(spec), _env_sig(env), batch_size,
+           with_tenants)
     return lru_get(_RUNNER_CACHE, key,
-                   lambda: spec_body(cfg, spec, env, batch_size),
+                   lambda: spec_body(cfg, spec, env, batch_size,
+                                     with_tenants),
                    _RUNNER_CACHE_MAX)
 
 

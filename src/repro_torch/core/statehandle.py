@@ -12,18 +12,27 @@ atomically.
   * ``StateHandle``  — the double buffer. ``read()`` is wait-free (one
     attribute load; the GIL makes the swap atomic), ``publish()`` swaps
     the fresh state in under a tiny lock and bumps the version.
-
-The JAX package's ``save_snapshot``/``load_snapshot`` and
-``decay_on_restore`` need its checkpoint module and tenant plane, which
-are not ported yet.
+  * ``decay_on_restore`` — §3.3's gamma^Δt forgetting applied eagerly at
+    restore time, so a router restarted after Δt offline steps resumes
+    with correctly aged sufficient statistics (and tenant duals).
+  * ``save_snapshot``/``load_snapshot`` — persistence via
+    ``training/checkpoint.py`` (.npz + manifest; the snapshot version
+    rides in the manifest's ``step`` field), in the JAX package's leaf
+    names, shapes and dtypes: a snapshot saved by either package loads
+    in the other.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import threading
 from typing import Optional
 
-from repro_torch.core.types import RouterState
+import torch
+
+from repro_torch.core import linucb, tenancy
+from repro_torch.core.types import RouterConfig, RouterState
+from repro_torch.training import checkpoint
 
 
 def _step(state: RouterState) -> int:
@@ -74,3 +83,78 @@ class StateHandle:
                             step=step)
             self._snap = snap
         return snap
+
+
+def decay_on_restore(cfg: RouterConfig, state: RouterState,
+                     elapsed: int) -> RouterState:
+    """Age a restored state by ``elapsed`` offline steps (§3.3).
+
+    Applies gamma^min(elapsed, dt_max) to every arm's (A, A_inv, b)
+    eagerly, recomputes theta, and shifts the whole step clock — ``t``,
+    ``last_upd``, ``last_play`` — forward by ``elapsed``, which keeps the
+    lazy decay exact: at the next update of arm ``a`` the live path
+    applies gamma^(t_now - last_upd[a]) on top, and the composition
+    equals the single gamma^(elapsed + gap) a never-restarted router
+    would have applied, up to float associativity (the 1e-6 round-trip
+    bound; exact equality also needs elapsed + gap <= cfg.dt_max).
+
+    The portfolio pacer (lam, c_ema) survives unchanged: Eqs. 3-4 track
+    the operator's budget, which does not decay with idleness. The
+    tenant table, when present, relaxes by ``tenancy.decay_table`` on the
+    same clock (lam toward 0, c_ema toward its budget; DESIGN.md §15).
+    """
+    elapsed = int(elapsed)
+    if elapsed < 0:
+        raise ValueError(f"decay_on_restore: elapsed={elapsed} must be >= 0")
+    if elapsed == 0:
+        return state
+    dt = torch.full_like(state.last_upd, elapsed)
+    g = linucb.forgetting_factor(cfg, state.hyper, dt)            # (S, K)
+    A = state.A * g[..., None, None]
+    A_inv = state.A_inv / g[..., None, None]
+    b = state.b * g[..., None]
+    theta = (A_inv @ b[..., None])[..., 0]
+    tenants = state.tenants
+    if tenants is not None:
+        tenants = tenancy.decay_table(cfg, state.hyper, tenants, elapsed)
+    return dataclasses.replace(
+        state,
+        A=A, A_inv=A_inv, b=b, theta=theta,
+        last_upd=state.last_upd + elapsed,
+        last_play=state.last_play + elapsed,
+        t=state.t + elapsed,
+        tenants=tenants,
+    )
+
+
+def save_snapshot(path: str, snap: Snapshot) -> None:
+    """Persist a snapshot as .npz + manifest (training/checkpoint.py).
+
+    A one-state stack is written in the JAX package's shapes (the state
+    axis dropped) and dtypes (the PRNG key as uint32); a stack of S > 1
+    keeps its leading axis. The publish version rides in the manifest
+    ``step`` field; the router's global step is a state leaf (``t``)."""
+    from repro_torch import interop
+
+    tree = interop.state_to_numpy(snap.state,
+                                  stacked=snap.state.num_states != 1)
+    checkpoint.save_checkpoint(path, tree, step=snap.version)
+
+
+def load_snapshot(path: str, template: RouterState) -> Snapshot:
+    """Restore a snapshot saved by ``save_snapshot`` (either package's).
+
+    ``template`` supplies the structure, shapes and device (e.g. a fresh
+    ``init_state`` for the same statics, with a tenant table of the same
+    T to restore one); shape mismatches raise in ``load_checkpoint``."""
+    from repro_torch import interop
+
+    stacked = template.num_states != 1
+    tree = checkpoint.load_checkpoint(
+        path, interop.state_to_numpy(template, stacked=stacked))
+    state = interop.state_from_numpy(tree, template.A.device)
+    # save_checkpoint writes the manifest at ``path + ".manifest.json"``
+    # for the same path string it was given — mirror that here.
+    with open(path + ".manifest.json") as f:
+        version = int(json.load(f)["step"])
+    return Snapshot(state=state, version=version, step=_step(state))

@@ -41,7 +41,7 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.core import evaluate, warmup
+from repro_torch.core import evaluate, tenancy, warmup
 from repro_torch.core import scenario as scenario_lib
 from repro_torch.core import types as types_lib
 from repro_torch.core.simulator import Environment
@@ -141,6 +141,46 @@ def _expand_hyper(hyper, C: int, S: int):
         n: _per_condition_axis(getattr(hyper, n), C, S)
         for n in types_lib.HYPER_FIELDS
     })
+
+
+def _expand_tenants(tables, C: int, S: int):
+    """A tenant-table spec for the flattened grid (DESIGN.md §15):
+    shared (T,) leaves pass through (every grid element gets a copy),
+    per-condition (C, T) leaves repeat S times to (C*S, T), and
+    pre-flattened (C*S, T) leaves pass through."""
+    if tables is None:
+        return None
+    ndim = tables.budget.ndim
+    if ndim == 1:
+        return tables
+    n0 = tables.budget.shape[0]
+    if ndim == 2 and n0 == C and C != C * S:
+        return tenancy.TenantTable(**{
+            n: getattr(tables, n).repeat_interleave(S, dim=0)
+            for n in tenancy.LEAVES})
+    if ndim == 2 and n0 == C * S:
+        return tables
+    raise ValueError(
+        f"tenant_tables.budget must be (T,) shared, ({C}, T) per-"
+        f"condition or ({C * S}, T) pre-flattened; got shape "
+        f"{tuple(tables.budget.shape)}")
+
+
+def _grid_tenant_ids(tenant_ids, C: int, S: int, device) -> torch.Tensor:
+    """Tenant ids (L,) shared, (S, L) per seed or (C*S, L) per element,
+    as a (C*S, L) int64 tensor on ``device``."""
+    tids = np.asarray(tenant_ids, np.int32)
+    if tids.ndim == 1:
+        tids = np.broadcast_to(tids, (C * S,) + tids.shape)
+    elif tids.ndim == 2 and tids.shape[0] == S and S != C * S:
+        tids = np.broadcast_to(tids[None], (C,) + tids.shape).reshape(
+            C * S, -1)
+    elif not (tids.ndim == 2 and tids.shape[0] == C * S):
+        raise ValueError(
+            f"tenant_ids must be (L,) shared, ({S}, L) per-seed or "
+            f"({C * S}, L) per-element; got shape {tids.shape}")
+    return torch.as_tensor(np.ascontiguousarray(tids),
+                           device=device).long()
 
 
 def _n_chunks(n: int, chunk_size) -> int:
@@ -362,11 +402,22 @@ def run_grid(
     runs the stack in sub-stacks of that many states; ``devices`` splits
     it over the grid mesh of those devices (``launch.mesh``); None runs
     it on ``device`` (default the card) alone. Both give the same bits.
-    Tenant grids are not ported yet and raise ``NotImplementedError``.
+
+    ``tenant_tables`` + ``tenant_ids`` put the tenant plane on the grid
+    (DESIGN.md §15): tables with (T,) shared, (C, T) per-condition or
+    (C*S, T) pre-flattened leaves, ids shaped (L,) shared, (S, L)
+    per-seed or (C*S, L) per-element — so a (tenants x budgets x seeds)
+    grid runs as one stack, split with it by ``chunk_size`` and
+    ``devices``. Requires ``batch_size`` (tenant routing is a
+    batched-data-plane feature) and the ``torch`` backend.
     """
-    if tenant_tables is not None or tenant_ids is not None:
-        raise NotImplementedError("tenant grids are not ported yet")
     budgets, seeds = _check_grid_args(budgets, seeds, condition_edits)
+    if (tenant_tables is None) != (tenant_ids is None):
+        raise ValueError("pass tenant_tables and tenant_ids together")
+    if tenant_tables is not None and not batch_size:
+        raise ValueError(
+            "tenant grids need batch_size: tenant routing is a batched-"
+            "data-plane feature (DESIGN.md §15)")
     if condition_edits is not None and any(
             getattr(e, "param_overrides", None) for e in condition_edits):
         raise ValueError(
@@ -388,11 +439,17 @@ def run_grid(
     states = evaluate.make_states(
         cfg, env0, flat_b, flat_s, priors=priors,
         n_eff=_per_condition_axis(n_eff, C, S), pacer_enabled=pacer_enabled,
-        hyper=_expand_hyper(hyper, C, S), device=device)
+        hyper=_expand_hyper(hyper, C, S),
+        tenants=_expand_tenants(tenant_tables, C, S), device=device)
     if condition_edits is not None:
         states = _apply_condition_edits(states, condition_edits, S)
-    finals, traces = _run_stack(evaluate.stream_body(cfg, batch_size),
-                                states, streams, n_chunks, devices, device)
+    if tenant_ids is not None:
+        body = evaluate.stream_body_tenants(cfg, batch_size)
+        streams = streams + (_grid_tenant_ids(tenant_ids, C, S, device),)
+    else:
+        body = evaluate.stream_body(cfg, batch_size)
+    finals, traces = _run_stack(body, states, streams, n_chunks, devices,
+                                device)
     res = _grid_result(budgets, seeds, traces)
     if return_states:
         return res, finals

@@ -216,6 +216,12 @@ class RouterState:
     force_left: Tensor  # (S,) i32, remaining forced pulls
     key: Tensor         # (S, 2) int64: threefry key words (uint32 values)
     hyper: HyperParams  # (S,) f32 leaves
+    # Optional tenant plane (DESIGN.md §15): a ``tenancy.TenantTable`` of
+    # (S, T) per-tenant pacer leaves sharing the state's LinUCB
+    # statistics, or None for the single-tenant paper configuration.
+    # Typed ``object`` to keep this module free of tenancy.py (which
+    # imports PacerState from here).
+    tenants: Optional[object] = None
 
     @property
     def num_states(self) -> int:
@@ -225,7 +231,7 @@ class RouterState:
 # Plane ownership of RouterState leaves (the gateway's double buffering):
 # ``select_batch`` writes only SELECT_LEAVES, ``update_batch`` only
 # LEARN_LEAVES; control-plane ops write CONTROL_LEAVES.
-LEARN_LEAVES = ("A", "A_inv", "b", "theta", "last_upd", "pacer")
+LEARN_LEAVES = ("A", "A_inv", "b", "theta", "last_upd", "pacer", "tenants")
 SELECT_LEAVES = ("t", "last_play", "key", "force_left")
 CONTROL_LEAVES = ("active", "price", "c_tilde", "force_arm", "hyper")
 
@@ -296,9 +302,12 @@ def with_hyperparams(state: RouterState, hyper: Optional[HyperParams] = None,
 
 def map_leaves(fn, *states):
     """``fn`` over the matching tensor leaves of one or more states (the
-    pacer's and the hyper-parameters' included), rebuilt into a state:
-    the port's ``jax.tree.map`` over ``RouterState``."""
+    pacer's, the hyper-parameters' and the tenant table's included),
+    rebuilt into a state: the port's ``jax.tree.map`` over
+    ``RouterState``. An absent tenant table stays None."""
     first = states[0]
+    if first is None:
+        return None
     if not dataclasses.is_dataclass(first):
         return fn(*states)
     return type(first)(**{
@@ -309,7 +318,8 @@ def map_leaves(fn, *states):
 def state_where(mask: Tensor, new: RouterState,
                 old: RouterState) -> RouterState:
     """Per state, ``new`` where ``mask`` (S,) bool is set, else ``old``:
-    every leaf, the pacer's and the hyper-parameters' included."""
+    every leaf, the pacer's, the hyper-parameters' and the tenant
+    table's included."""
     return map_leaves(lambda a, b: torch.where(lead(mask, a.ndim), a, b),
                       new, old)
 
@@ -369,6 +379,7 @@ def init_state(
     hyper: Optional[HyperParams] = None,
     num_states: Optional[int] = None,
     device=None,
+    tenants: Optional[object] = None,
 ) -> RouterState:
     """Uninformative (tabula-rasa) initial states; warm start via warmup.py.
 
@@ -381,8 +392,12 @@ def init_state(
       num_states: S; default the length of ``key`` or ``budget``, else 1.
       hyper: overrides ``cfg.hyper`` (scalar or (S,) leaves).
       device: default the card (raises without one).
+      tenants: optional ``tenancy.TenantTable`` enabling per-tenant pacing
+        (DESIGN.md §15): (T,) leaves copied into every state or (S, T)
+        leaves, one row per state. The scalar pacer stays as the
+        portfolio-wide view but is inert when a table is present.
     """
-    from repro_torch.core import prng
+    from repro_torch.core import prng, tenancy
 
     device = resolve_device(device)
     K, d = cfg.max_arms, cfg.d
@@ -433,4 +448,6 @@ def init_state(
         force_left=torch.zeros((S,), **i32),
         key=key.to(device=device, dtype=torch.int64),
         hyper=hp,
+        tenants=(None if tenants is None
+                 else tenancy.expand(tenants, S, device)),
     )

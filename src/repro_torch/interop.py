@@ -20,6 +20,7 @@ from typing import Mapping
 import numpy as np
 import torch
 
+from repro_torch.core import tenancy
 from repro_torch.core.simulator import Environment
 from repro_torch.core.types import (
     HYPER_FIELDS, ArmPrior, HyperParams, PacerState, RouterState,
@@ -34,15 +35,28 @@ _ENV = ("contexts", "rewards", "costs", "families", "prices_per_req",
         "prices_per_1k")
 
 
+_TENANT_DTYPES = {"lam": torch.float32, "c_ema": torch.float32,
+                  "budget": torch.float32, "enabled": torch.bool,
+                  "pulls": torch.int32, "spend": torch.float32}
+
+
 def _get(leaves, name):
     if isinstance(leaves, Mapping):
         return leaves[name]
     return getattr(leaves, name)
 
 
+def _tenants_of(leaves):
+    """The state's tenant table leaves, or None (absent or None)."""
+    if isinstance(leaves, Mapping):
+        return leaves.get("tenants")
+    return getattr(leaves, "tenants", None)
+
+
 def state_from_numpy(leaves, device) -> RouterState:
     """A port ``RouterState`` from a JAX state's leaves (unstacked or
-    seed-stacked). ``pacer`` and ``hyper`` are nested the same way."""
+    seed-stacked). ``pacer``, ``hyper`` and ``tenants`` (when present and
+    not None) are nested the same way."""
     stacked = np.asarray(_get(leaves, "A")).ndim == 4
 
     def tensor(v, dtype):
@@ -69,13 +83,18 @@ def state_from_numpy(leaves, device) -> RouterState:
     h = _get(leaves, "hyper")
     kw["hyper"] = HyperParams(**{
         n: tensor(_get(h, n), torch.float32) for n in HYPER_FIELDS})
+    tab = _tenants_of(leaves)
+    if tab is not None:
+        kw["tenants"] = tenancy.TenantTable(**{
+            n: tensor(_get(tab, n), dt) for n, dt in _TENANT_DTYPES.items()})
     return RouterState(**kw)
 
 
 def state_to_numpy(state: RouterState, *, stacked: bool = True) -> dict:
     """The port state's leaves as numpy, in the JAX package's dtypes (the
-    key back to uint32). ``stacked=False`` drops the state axis of an
-    S = 1 stack, giving a single router's leaves."""
+    key back to uint32) and in ``RouterState``'s field order, the tenant
+    table included when the state has one. ``stacked=False`` drops the
+    state axis of an S = 1 stack, giving a single router's leaves."""
     if not stacked and state.num_states != 1:
         raise ValueError(f"cannot unstack {state.num_states} states")
 
@@ -83,11 +102,19 @@ def state_to_numpy(state: RouterState, *, stacked: bool = True) -> dict:
         a = t.detach().cpu().numpy()
         return a if stacked else a[0]
 
-    out = {n: arr(getattr(state, n))
-           for n in _F32 + _I32 + ("active",)}
-    out["key"] = arr(state.key).astype(np.uint32)
-    out["pacer"] = {n: arr(getattr(state.pacer, n)) for n in _PACER}
-    out["hyper"] = {n: arr(getattr(state.hyper, n)) for n in HYPER_FIELDS}
+    nested = {"pacer": _PACER, "hyper": HYPER_FIELDS,
+              "tenants": tenancy.LEAVES}
+    out = {}
+    for f in dataclasses.fields(RouterState):
+        v = getattr(state, f.name)
+        if v is None:
+            continue
+        if f.name in nested:
+            out[f.name] = {n: arr(getattr(v, n)) for n in nested[f.name]}
+        elif f.name == "key":
+            out["key"] = arr(v).astype(np.uint32)
+        else:
+            out[f.name] = arr(v)
     return out
 
 

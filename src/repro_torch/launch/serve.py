@@ -6,12 +6,14 @@ its FULL architecture, and streams synthetic requests through the closed
 loop via the serving gateway: requests enter in admission windows of
 ``--window``, feedback is applied by learner ticks every
 ``--publish-every`` windows, and the run ends with the gateway's
-telemetry (Prometheus text with ``--prom``). Runs on ``--device``
-(default ``cuda``; ``cpu`` runs every kernel's plain version).
+telemetry (Prometheus text with ``--prom``) plus an optional state
+snapshot (``--snapshot PATH``, the JAX package's .npz + manifest). Runs
+on ``--device`` (default ``cuda``; ``cpu`` runs every kernel's plain
+version).
 
 The default trio is the JAX driver's: olmo-1b, mamba2-370m (an SSM),
-deepseek-67b. ``--snapshot`` and ``--dry-run`` are not ported yet and
-raise ``NotImplementedError``.
+deepseek-67b. ``--dry-run`` is not ported yet and raises
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,8 +34,7 @@ def main(argv=None):
     ap.add_argument("--publish-every", type=int, default=1,
                     help="learner tick cadence, in routed windows")
     ap.add_argument("--snapshot", default=None,
-                    help="save the final router snapshot here (not ported "
-                    "yet: raises NotImplementedError)")
+                    help="save the final router snapshot here (.npz)")
     ap.add_argument("--prom", action="store_true",
                     help="print the Prometheus telemetry scrape")
     ap.add_argument("--dry-run", action="store_true",

@@ -26,8 +26,14 @@ discards its result and retries. With a ``learn_tick`` after every block
 
 The gateway serves one router: the port's state axis has S = 1. The JAX
 package's ``select_batch`` is a jitted call; here it is a direct call.
-Tenant routing and snapshot persistence are not ported yet and raise
-``NotImplementedError``.
+
+With a tenant table on the live state (DESIGN.md §15) every request
+carries a tenant id: ``submit(..., tenant=)`` tags it in the admission
+window, ``route_block`` scores each row under its tenant's dual and
+ceiling, and the learner folds each row's cost into its tenant's pacer.
+As in the JAX package, tenant routing needs the ``torch`` backend.
+``save`` / ``restore`` persist the published snapshot
+(``statehandle.save_snapshot``) and age it on the way back in.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import router as router_lib
+from repro_torch.core import statehandle
 from repro_torch.core.statehandle import Snapshot, StateHandle
 from repro_torch.core.types import (
     RouterConfig, RouterState, merge_learn_leaves, validate_leaf_partition,
@@ -50,11 +57,6 @@ from repro_torch.serving.telemetry import Telemetry
 # The publish merge below is only sound if the writer planes exactly
 # partition RouterState; fail at import, not mid-serve.
 validate_leaf_partition()
-
-
-def _no_tenants(what: str) -> None:
-    raise NotImplementedError(
-        f"{what}: tenant routing is not ported yet; serve without tenants")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,8 +144,6 @@ class RouterGateway:
         if state.num_states != 1:
             raise ValueError(f"the gateway serves one router state; got "
                              f"{state.num_states}")
-        if tenant_names is not None:
-            _no_tenants("RouterGateway")
         self.cfg = cfg
         self.device = state.A.device
         self._lock = threading.Lock()
@@ -153,10 +153,15 @@ class RouterGateway:
         self.handle = StateHandle(state, step=self._t_host)
         # Explicit None checks: an empty store/batcher is falsy.
         self.store = InMemoryFeedbackStore() if store is None else store
-        self.telemetry = telemetry or Telemetry(cfg.max_arms)
+        self.telemetry = telemetry or Telemetry(
+            cfg.max_arms, tenant_names=tenant_names)
         self.batcher = MicroBatcher() if batcher is None else batcher
         self._pending: List[Tuple[np.ndarray, np.ndarray, np.ndarray,
-                                  np.ndarray, List[int]]] = []
+                                  np.ndarray, np.ndarray, List[int]]] = []
+        # tenant tag for requests sitting in the admission window — the
+        # MicroBatcher flush contract stays (ids, rows); tenants rejoin
+        # the block here at route time (DESIGN.md §15)
+        self._tenant_of: Dict[int, int] = {}
 
     # -- selection plane ---------------------------------------------------
     @property
@@ -171,15 +176,27 @@ class RouterGateway:
                     tenant_ids=None) -> RouteResult:
         """Route one admission window (X (B, d)) with a single
         ``select_batch``; the state swap under the lock is the whole
-        critical section."""
-        if tenant_ids is not None:
-            _no_tenants("route_block")
+        critical section.
+
+        When the live state carries a tenant table, each row is scored
+        under ITS tenant's dual and ceiling (``tenant_ids`` (B,); None =
+        all tenant 0); passing tenant_ids without a table is an error."""
         B = len(request_ids)
+        tenanted = self._live.tenants is not None
+        if tenant_ids is not None and not tenanted:
+            raise ValueError(
+                "route_block: tenant_ids given but the live state has no "
+                "tenant table (init_state(..., tenants=make_table(...)))")
         t0 = time.perf_counter()
         Xt = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        tids_np = tids = None
+        if tenanted:
+            tids_np = (np.zeros(B, np.int32) if tenant_ids is None
+                       else np.asarray(tenant_ids, np.int32))
+            tids = torch.as_tensor(tids_np, device=self.device)[None]
         with self._lock:
-            dec, self._live = router_lib.select_batch(self.cfg, self._live,
-                                                      Xt[None])
+            dec, self._live = router_lib.select_batch(
+                self.cfg, self._live, Xt[None], tenant_ids=tids)
             self._t_host += B
             version = self.handle.version
         arms = dec.arms[0].cpu().numpy()
@@ -189,10 +206,18 @@ class RouterGateway:
         X_np = Xt.cpu().numpy()
         put_block = getattr(self.store, "put_block", None)
         if put_block is not None:
-            put_block(request_ids, X_np, arms, version=version)
+            if tids_np is None:    # keep pre-tenancy store compatibility
+                put_block(request_ids, X_np, arms, version=version)
+            else:
+                put_block(request_ids, X_np, arms, version=version,
+                          tenants=tids_np)
         else:  # third-party stores: per-row contract
-            for rid, x, a in zip(request_ids, X_np, arms):
-                self.store.put(rid, x, int(a), version=version)
+            for i, (rid, x, a) in enumerate(zip(request_ids, X_np, arms)):
+                if tids_np is None:
+                    self.store.put(rid, x, int(a), version=version)
+                else:
+                    self.store.put(rid, x, int(a), version=version,
+                                   tenant=int(tids_np[i]))
         self.telemetry.record_route(
             arms, route_us, lam, forced=int(forced.sum()), version=version)
         return RouteResult(
@@ -202,9 +227,10 @@ class RouterGateway:
     def submit(self, request_id: int, context,
                tenant: int = 0) -> Optional[RouteResult]:
         """Admission path: collect into the micro-batch window; routes and
-        returns the block when the window fills."""
+        returns the block when the window fills. ``tenant`` tags the
+        request for per-tenant pacing (ignored without a tenant table)."""
         if tenant:
-            _no_tenants("submit")
+            self._tenant_of[int(request_id)] = int(tenant)
         win = self.batcher.submit(request_id, context)
         self.telemetry.record_admission(
             len(self.batcher), len(self.batcher), self.batcher.max_batch)
@@ -224,6 +250,12 @@ class RouterGateway:
         ids, rows = win
         self.telemetry.record_admission(
             len(self.batcher), len(ids), self.batcher.max_batch)
+        if self._live.tenants is not None:
+            tids = np.asarray(
+                [self._tenant_of.pop(int(r), 0) for r in ids], np.int32)
+            return self.route_block(ids, rows, tenant_ids=tids)
+        for r in ids:                       # tags are no-ops without a table
+            self._tenant_of.pop(int(r), None)
         return self.route_block(ids, rows)
 
     # -- learner plane -----------------------------------------------------
@@ -257,13 +289,16 @@ class RouterGateway:
             recs = pop_block(request_ids)
         else:  # third-party stores: per-row contract
             recs = [self.store.pop_record(rid) for rid in request_ids]
-        kept_X, kept_a, kept_r, kept_c, kept_ids = [], [], [], [], []
+        kept_X, kept_a, kept_r, kept_c = [], [], [], []
+        kept_t, kept_ids = [], []
         for rid, a, rw, co, rec in zip(
                 request_ids, arms, rewards, costs, recs):
             if rec is None:          # unknown, duplicate, or replayed id
                 self.telemetry.inc("dropped_feedback")
                 continue
+            # pre-tenancy stores return 3-tuples; tenant then defaults 0
             x, cached_arm, routed_version = rec[:3]
+            tenant = rec[3] if len(rec) > 3 else 0
             arm = int(a) if a >= 0 else cached_arm
             if not (0 <= arm < self.cfg.max_arms and bool(active[arm])):
                 self.telemetry.inc("dropped_feedback")  # retired in flight
@@ -271,13 +306,14 @@ class RouterGateway:
             self.telemetry.record_feedback_version(routed_version, version)
             kept_X.append(x), kept_a.append(arm)
             kept_r.append(rw), kept_c.append(co)
-            kept_ids.append(int(rid))
+            kept_t.append(int(tenant)), kept_ids.append(int(rid))
         if not kept_a:
             return 0
         block = (np.stack(kept_X).astype(np.float32),
                  np.asarray(kept_a, np.int32),
                  np.asarray(kept_r, np.float32),
                  np.asarray(kept_c, np.float32),
+                 np.asarray(kept_t, np.int32),
                  kept_ids)
         with self._lock:
             self._pending.append(block)
@@ -298,16 +334,19 @@ class RouterGateway:
         # Stage each feedback block on the device once (not again on an
         # epoch-bump retry), with the state axis S = 1 in front.
         staged = [tuple(torch.as_tensor(a, device=self.device)[None]
-                        for a in (X, arm, r, c))
-                  for X, arm, r, c, _ids in blocks]
+                        for a in (X, arm, r, c, t))
+                  for X, arm, r, c, t, _ids in blocks]
         while True:
             with self._lock:
                 base = self._live
                 epoch = self._epoch
             learned = base
-            for X, a, r, c in staged:
-                learned = router_lib.update_batch(self.cfg, learned, a, X,
-                                                  r, c)
+            tenanted = base.tenants is not None
+            for X, a, r, c, t in staged:
+                # in tenant mode each row folds into ITS tenant's pacer
+                learned = router_lib.update_batch(
+                    self.cfg, learned, a, X, r, c,
+                    tenant_ids=t if tenanted else None)
             with self._lock:
                 if self._epoch != epoch:
                     self.telemetry.inc("learn_retries_total")
@@ -317,6 +356,13 @@ class RouterGateway:
             break
         self.telemetry.record_publish(
             snap.version, n_feedback=n_rows, n_blocks=len(blocks))
+        tab = snap.state.tenants
+        if tab is not None:
+            # host readback off the request path: latest table reading for
+            # the per-tenant operator series
+            self.telemetry.record_tenants(
+                *(getattr(tab, n)[0].cpu().numpy()
+                  for n in ("spend", "pulls", "lam", "budget")))
         return snap
 
     # -- control plane (hot swap goes through the publish path) ------------
@@ -334,16 +380,28 @@ class RouterGateway:
 
     # -- persistence -------------------------------------------------------
     def save(self, path: str) -> Snapshot:
-        raise NotImplementedError(
-            "snapshot persistence needs training/checkpoint.py, which is not "
-            "ported yet")
+        """Persist the latest published snapshot (.npz + manifest, in the
+        JAX package's format)."""
+        snap = self.handle.read()
+        statehandle.save_snapshot(path, snap)
+        return snap
 
     def restore(self, path: str, *, elapsed: int = 0,
                 template: Optional[RouterState] = None) -> Snapshot:
-        raise NotImplementedError(
-            "snapshot restore (with decay_on_restore) needs "
-            "training/checkpoint.py and the tenant plane, which are not "
-            "ported yet")
+        """Load a snapshot, age it by ``elapsed`` offline steps
+        (``statehandle.decay_on_restore``) and adopt it as the live
+        state; versioning continues from the stored version."""
+        snap = statehandle.load_snapshot(
+            path, template if template is not None else self._live)
+        state = statehandle.decay_on_restore(self.cfg, snap.state, elapsed)
+        step = snap.step + int(elapsed)
+        with self._lock:
+            self._live = state
+            self._epoch += 1
+            self._t_host = step
+            self._pending.clear()
+            self.handle = StateHandle(state, version=snap.version, step=step)
+        return self.handle.read()
 
     # -- export ------------------------------------------------------------
     def metrics(self) -> Dict[str, float]:

@@ -191,6 +191,110 @@ def test_timeline_identity_on_card(dev, batch_size):
     assert masked.bounds == base.bounds
 
 
+def test_tenant_fold_equals_grouped_fold_on_card(dev):
+    """DESIGN.md §15 on the card: the interleaved tenant fold equals each
+    (state, tenant) group folded through ``pacer_update_batch``, bit for
+    bit, and spend the arrival-order f32 sum."""
+    from repro_torch.core import pacer, tenancy
+    from repro_torch.core.types import HyperParams
+
+    rng = np.random.default_rng(19)
+    S, B, T = 4, 256, 8
+    costs = rng.uniform(1e-5, 8e-4, (S, B)).astype(np.float32)
+    tids = rng.integers(0, T, (S, B))
+    budgets = rng.uniform(1.8e-4, 2.8e-4, T).astype(np.float32)
+    hp = HyperParams().as_leaves(S, dev)
+    tab = tenancy.expand(tenancy.make_table(budgets, device=dev), S)
+    out = tenancy.tenant_fold(hp, tab, torch.as_tensor(tids, device=dev),
+                              torch.as_tensor(costs, device=dev))
+    hp1 = HyperParams().as_leaves(1, dev)
+    for s in range(S):
+        for j in range(T):
+            cs = costs[s][tids[s] == j]
+            row = tenancy.table_row(tab, j)
+            row = type(row)(*(getattr(row, f)[s:s + 1] for f in
+                              ("lam", "c_ema", "budget", "enabled")))
+            ref = pacer.pacer_update_batch(
+                hp1, row, torch.as_tensor(cs, device=dev)[None])
+            assert out.lam[s, j].item() == ref.lam.item(), (s, j)
+            assert out.c_ema[s, j].item() == ref.c_ema.item(), (s, j)
+            assert int(out.pulls[s, j]) == len(cs)
+            spend = np.float32(0.0)
+            for c in cs:
+                spend = np.float32(spend + c)
+            assert out.spend[s, j].item() == spend, (s, j)
+
+
+def _tenant_bench(dev):
+    b = simulator.make_benchmark(
+        seed=0, splits={"train": 256, "val": 16, "test": 256}, device=dev)
+    priors = evaluate.fit_warmup_priors(RouterConfig(), b.train)
+    tids = np.random.default_rng(4).integers(0, 4, 256).astype(np.int32)
+    return b, priors, tids
+
+
+def test_tenant_run_on_card_matches_cpu(dev):
+    """A tenanted evaluate.run (the ``torch`` backend, blocks of 32) on
+    the card chooses the same arms as on the CPU, with the final tables
+    within 1e-4; it launches no LinUCB kernel."""
+    from repro_torch.core import tenancy
+
+    b, priors, tids = _tenant_bench(dev)
+    cfg = RouterConfig(backend="torch", forced_pulls=0)
+    budgets = (2.0e-4, 3.0e-4, 4.5e-4, 6.0e-4)
+    n = (score_ops.LAUNCHES[0], step_ops.LAUNCHES[0])
+    kw = dict(seeds=(0, 1), n_eff=1164.0, batch_size=32, tenant_ids=tids,
+              return_states=True)
+    got, gfin = evaluate.run(cfg, b.test, 1.0, priors=priors,
+                             tenants=tenancy.make_table(budgets), **kw)
+    assert (score_ops.LAUNCHES[0], step_ops.LAUNCHES[0]) == n
+    cpu_priors = [type(p)(p.A_off.cpu(), p.b_off.cpu()) for p in priors]
+    want, wfin = evaluate.run(
+        cfg, b.test, 1.0, priors=cpu_priors, device="cpu",
+        tenants=tenancy.make_table(budgets, device="cpu"), **kw)
+    np.testing.assert_array_equal(got.arms, want.arms)
+    for f in ("lam", "c_ema"):
+        torch.testing.assert_close(getattr(gfin.tenants, f).cpu(),
+                                   getattr(wfin.tenants, f), rtol=1e-4,
+                                   atol=1e-4)
+    assert torch.equal(gfin.tenants.pulls.cpu(), wfin.tenants.pulls)
+
+
+def test_tenant_gateway_round_trip_on_card(dev, tmp_path):
+    """The tenanted gateway on the card: save -> restore(elapsed) equals
+    ``decay_on_restore`` of the saved state within 1e-6."""
+    from repro_torch import interop
+    from repro_torch.core import statehandle, tenancy
+    from repro_torch.serving.gateway import MicroBatcher, RouterGateway
+
+    b, priors, tids = _tenant_bench(dev)
+    cfg = RouterConfig(backend="torch", forced_pulls=0)
+    st = evaluate.make_states(cfg, b.test, 1.0, (0,), priors=priors,
+                              n_eff=1164.0, tenants=tenancy.make_table(
+                                  (2.0e-4, 3.0e-4, 4.5e-4, 6.0e-4)))
+    gw = RouterGateway(cfg, st, batcher=MicroBatcher(max_batch=16))
+    X = b.test.contexts.astype(np.float32)
+    for w in range(8):
+        rows = np.arange(w * 16, (w + 1) * 16)
+        res = gw.route_block(rows.tolist(), X[rows], tenant_ids=tids[rows])
+        gw.enqueue_feedback(rows.tolist(), res.arms,
+                            b.test.rewards[rows, res.arms],
+                            b.test.costs[rows, res.arms])
+        gw.learn_tick()
+    path = str(tmp_path / "snap")
+    saved = gw.save(path).state
+    gw.restore(path, elapsed=40)
+    want = interop.state_to_numpy(
+        statehandle.decay_on_restore(cfg, saved, 40))
+    got = interop.state_to_numpy(gw.live_state)
+    for k, v in want.items():
+        for name, w_ in (v.items() if isinstance(v, dict) else [(k, v)]):
+            g_ = got[k][name] if isinstance(v, dict) else got[k]
+            np.testing.assert_allclose(g_, w_, rtol=1e-6, atol=1e-6,
+                                       err_msg=f"{k}/{name}")
+    assert gw.live_state.A.device.type == "cuda"
+
+
 def _bitwise(a, b):
     for f in ("arms", "rewards", "costs", "lams"):
         np.testing.assert_array_equal(getattr(a, f), getattr(b, f), err_msg=f)

@@ -176,8 +176,45 @@ def test_forced_burnin_and_frozen_pacer(warmed, backend):
 
 
 def test_tenant_mode_not_ported(warmed):
-    ts = interop.state_from_numpy(warmed[0][0], "cpu")
-    X = torch.zeros((1, 2, D))
-    with pytest.raises(NotImplementedError):
-        router.select_batch(_tcfg("torch"), ts, X,
-                            tenant_ids=torch.zeros((1, 2)))
+    """Tenant mode is not ported to the kernels, as the JAX package's
+    Pallas kernels refuse it: ``score`` and ``fused`` raise
+    ``NotImplementedError`` and a state without a table ``ValueError``;
+    on ``torch`` a tenant block from the warmed S = 2 stack matches JAX's
+    ``jnp`` tenant path (arms exact, the table within 1e-4, the
+    portfolio pacer untouched)."""
+    from repro.core import tenancy as jten
+
+    budgets = np.linspace(2e-4, 8e-4, 3).astype(np.float32)
+    jstates = [dataclasses.replace(st, tenants=jten.make_table(budgets))
+               for st, _ in warmed]
+    ts = interop.state_from_numpy(_stack(jstates), "cpu")
+    X, R, C = _blocks(warmed, 16)[0]
+    tids = np.random.default_rng(7).integers(0, 3, 16).astype(np.int32)
+    args = (torch.as_tensor(X)[None].expand(2, -1, -1),
+            torch.as_tensor(R)[None].expand(2, -1, -1),
+            torch.as_tensor(C)[None].expand(2, -1, -1))
+    tt = torch.as_tensor(tids)[None].expand(2, -1)
+    for backend in ("score", "fused"):
+        with pytest.raises(NotImplementedError):
+            router.select_batch(_tcfg(backend), ts, args[0], tenant_ids=tt)
+        with pytest.raises(NotImplementedError):
+            router.step_batch(_tcfg(backend), ts, *args, tenant_ids=tt)
+    plain = interop.state_from_numpy(warmed[0][0], "cpu")
+    with pytest.raises(ValueError, match="tenant"):
+        router.select_batch(_tcfg("torch"), plain, args[0][:1],
+                            tenant_ids=tt[:1])
+    out, (arms, _, _, lam) = router.step_batch(_tcfg("torch"), ts, *args,
+                                               tenant_ids=tt)
+    for s, js in enumerate(jstates):
+        js, (ja, _, _, jl) = jrouter.step_batch(
+            _jcfg("jnp"), js, *map(jnp.asarray, (X, R, C)),
+            jnp.asarray(tids))
+        assert arms[s].tolist() == np.asarray(ja).tolist()
+        np.testing.assert_allclose(lam[s].numpy(), np.asarray(jl), atol=TOL)
+        for n in ("lam", "c_ema", "spend"):
+            np.testing.assert_allclose(
+                getattr(out.tenants, n)[s].numpy(),
+                np.asarray(getattr(js.tenants, n)), atol=TOL, err_msg=n)
+        assert out.tenants.pulls[s].tolist() == np.asarray(
+            js.tenants.pulls).tolist()
+        assert float(out.pacer.lam[s]) == float(js.pacer.lam)

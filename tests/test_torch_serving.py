@@ -250,7 +250,13 @@ def test_portfolio_server_matches_jax(jax_models):
     assert abs(m["lam"] - jm["lam"]) <= 1e-4
 
 
-def test_gateway_refuses_what_is_not_ported():
+def test_gateway_refuses_what_is_not_ported(tmp_path):
+    """An empty portfolio refuses to serve; tenant ids without a table
+    raise JAX's ``ValueError``; tenant routing is not ported to the
+    kernels (the default ``fused`` backend raises, as JAX's Pallas
+    kernels do); ``save`` / ``restore`` round-trip the snapshot."""
+    from repro_torch.core import tenancy
+
     corpus = [r["prompt"] for r in make_request_stream(60, seed=9)]
     from repro_torch.core.features import fit_pca_whitener as fit
     w = fit(hash_encode_batch(corpus), device="cpu")
@@ -258,14 +264,20 @@ def test_gateway_refuses_what_is_not_ported():
     with pytest.raises(RuntimeError):
         srv.serve({"id": 0, "prompt": "hi"})
     gw = srv.gateway
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="tenant table"):
         gw.route_block([0], np.zeros((1, 26), np.float32), tenant_ids=[0])
-    with pytest.raises(NotImplementedError):
-        gw.submit(0, np.zeros(26, np.float32), tenant=1)
-    with pytest.raises(NotImplementedError):
-        gw.save("x.npz")
-    with pytest.raises(NotImplementedError):
-        gw.restore("x.npz")
+    tenanted = dataclasses.replace(gw.live_state, tenants=tenancy.expand(
+        tenancy.make_table([1e-4, 2e-4], device="cpu"), 1))
+    gw.apply_control(lambda st: tenanted)
+    with pytest.raises(NotImplementedError, match="backend='torch'"):
+        gw.route_block([0], np.zeros((1, 26), np.float32), tenant_ids=[1])
+    path = str(tmp_path / "snap")
+    saved = gw.save(path)
+    restored = gw.restore(path, elapsed=3)
+    assert restored.version == saved.version == gw.version
+    assert restored.step == saved.step + 3
+    assert torch.equal(gw.live_state.tenants.budget, tenanted.tenants.budget)
+    assert int(gw.live_state.t[0]) == int(saved.state.t[0]) + 3
 
 
 def test_gateway_admission_window_matches_jax(jax_models):
@@ -302,13 +314,17 @@ def test_gateway_admission_window_matches_jax(jax_models):
     assert routed[0] == routed[1]
 
 
-def test_serve_driver_on_cpu(capsys):
+def test_serve_driver_on_cpu(capsys, tmp_path):
     from repro_torch.launch import serve
 
+    snap = str(tmp_path / "router")
     serve.main(["--device", "cpu", "--requests", "8", "--window", "4",
-                "--prom"])
+                "--prom", "--snapshot", snap])
     out = capsys.readouterr().out
     assert "served 8 requests" in out and "traffic:" in out
+    assert f"(t=8) -> {snap}" in out
+    assert (tmp_path / "router.npz").exists()
+    assert (tmp_path / "router.manifest.json").exists()
     assert "arm 1: mamba2-370m" in out
     assert "decisions_total 8" in out.replace("paretobandit_", "")
     with pytest.raises(NotImplementedError):

@@ -22,6 +22,7 @@ from repro.core import sweep as jsweep  # noqa: E402
 from repro.core.types import RouterConfig as JConfig  # noqa: E402
 from repro_torch import interop  # noqa: E402
 from repro_torch.core import evaluate, montecarlo, scenario, sweep  # noqa: E402
+from repro_torch.core import tenancy  # noqa: E402
 from repro_torch.core import types as types_lib  # noqa: E402
 from repro_torch.core.backend import EQUIV_TOL  # noqa: E402
 from repro_torch.core.types import HyperParams, RouterConfig  # noqa: E402
@@ -477,11 +478,17 @@ def _guard_calls(env):
             sweep.run_scenario_grid(
                 CFG, plain, env, BUDGETS, seeds=SEEDS,
                 timelines=(scenario.Timeline((10,)),) * 2, **kw))),
-        "tenant_tables": (NotImplementedError, "tenant", lambda: (
+        "tenant_tables": (ValueError, "together", lambda: (
             sweep.run_grid(CFG, env, BUDGETS, seeds=SEEDS,
-                           tenant_tables=object(), **kw))),
-        "tenant_ids": (NotImplementedError, "tenant", lambda: (
+                           tenant_tables=tenancy.make_table(
+                               [1e-3, 2e-3], device="cpu"), **kw))),
+        "tenant_ids": (ValueError, "together", lambda: (
             sweep.run_grid(CFG, env, BUDGETS, seeds=SEEDS,
+                           tenant_ids=np.zeros(96, np.int32), **kw))),
+        "tenant_batch_size": (ValueError, "batch_size", lambda: (
+            sweep.run_grid(CFG, env, BUDGETS, seeds=SEEDS,
+                           tenant_tables=tenancy.make_table(
+                               [1e-3, 2e-3], device="cpu"),
                            tenant_ids=np.zeros(96, np.int32), **kw))),
         "states_above_grid_limit": (ValueError, "chunk_size", lambda: (
             checks.cuda_operands("linucb_step",
