@@ -45,7 +45,12 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      a ragged f32 shape, kernel and plain version (no single library call
      computes the scan), each check naming the route its plan took
      (one_chunk and chunked on the tensor cores, fma on FP32 FMAs) and
-     its bound at that route's peak;
+     its bound at that route's peak; last, phase 13's shapes: flash at hd
+     80 (zamba2-2.7b), 608 rows at hd 96 (phi-3-vision's image and
+     prompt), whisper-medium's full-mode encoder at T = 1,500 and its
+     cross-attention (32 queries against 1,500 frames); decode at hd
+     80 / 96 / 64 with G = 1 and at hd 128 with G = 6 (dbrx-132b) and
+     G = 5 (llama4-maverick); ssd_scan at zamba2's H 80, P 64, N 64;
   7. drives the served path at full width: a PortfolioServer of the JAX
      driver's trio, olmo-1b (16 layers), mamba2-370m (48 layers, nothing
      cut) and deepseek-67b at full width with its depth cut to 4 layers,
@@ -107,22 +112,46 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      pulls and spend equal bit for bit to the grouped single-tenant
      fold; (b) T = 4 compliance (n 32,768, 8 seeds), every tenant's
      steady-state deviation <= 0.004; (c) a fleet grid of 3 tables x 4
-     seeds (n 8,192) as one run_grid call, identical to the three looped
+     seeds (n 4,096) as one run_grid call, identical to the three looped
      evaluate.run calls, both walls printed; (d) a tenanted gateway (T =
      4, 32 windows of 16, feedback and learning), saved and restored
      with elapsed 50: the restored state equals decay_on_restore of the
      saved one within 1e-6, each tenant's lam decays toward 0 and c_ema
      toward its budget. The LinUCB kernels' counters are zeroed before
      the phase and must read 0 after it; a tenant block on "fused" must
-     raise NotImplementedError.
+     raise NotImplementedError;
+ 13. serves the rest of the model zoo at full width, phase 7's portfolio
+     released first: (a) a PortfolioServer of zamba2-2.7b (54 layers,
+     nothing cut), phi-3-vision-4.2b (32 layers, text path) and dbrx-132b
+     at full width with its depth cut to 4 of 40 layers, bf16 weights
+     from seeds, each priced from its FULL config, a first generate per
+     arm, then 24 requests in windows of 8 as in phase 7; (b)
+     llama4-maverick at full width, 2 of 48 layers (one dense, one MoE),
+     with the card to itself: two generates; (c) whisper-medium whole:
+     prefill_forward on (1, 1,500, 80) frames from a seed and a 32-token
+     prompt, then 8 decode steps; (d) phi-3-vision's image path: 576
+     patch embeddings (width 1,024) from a seed before the prompt, then
+     8 tokens. The served kernels' counters are zeroed before each
+     sub-phase's generates and read after them: the launches must equal
+     the per-family count (flash once per attention layer per prefill,
+     the hybrid's shared block once per application, whisper's 24
+     encoder + 24 self + 24 cross layers; decode once per attention
+     layer per token; ssd_scan once per Mamba2 layer), every flash
+     launch on the tensor cores, every ssd_scan launch on one_chunk.
+     Each arm's teacher-forced logits as in phase 8 (f32 held to its
+     bar; bf16 to 2x the plain routes' difference, except the MoE arms,
+     whose bf16 ratio is printed beside the count of (token, layer)
+     top-k choices that differ between the routes), its trace as in
+     phase 9, and each sub-phase's wall and peak memory.
 
-Prints the kernels JSON line, then the nvidia-smi line, and last
-``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
+Prints the script's wall, the kernels JSON line, then the nvidia-smi
+line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
 code is non-zero and no result line is printed. Without a CUDA device,
 or run from a directory without the repository's src/, it exits 2.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -579,8 +608,9 @@ def _row_rel_err(got, want, dtype_name):
     return rel, rel <= ATTN_ROW_REL_TOL[dtype_name]
 
 
-def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
-    """flash_attention against its plain version on (B, S, H, KV, hd); the
+def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0, T=None):
+    """flash_attention against its plain version on q (B, S, H, hd) and
+    k / v (B, T, KV, hd), T = S unless given (cross-attention); the
     library yardstick is one scaled_dot_product_attention call."""
     import torch
     import torch.nn.functional as F
@@ -592,7 +622,8 @@ def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
 
     mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda",  # noqa: E731
                                     dtype=dtype)
-    q, k, v = mk(B, S, H, hd), mk(B, S, KV, hd), mk(B, S, KV, hd)
+    T = T or S
+    q, k, v = mk(B, S, H, hd), mk(B, T, KV, hd), mk(B, T, KV, hd)
     name = str(dtype).split(".")[1]
     got = ops.flash_attention(q, k, v, mode=mode, window=window)
     want = flash_attention_ref(q, k, v, mode=mode, window=window)
@@ -601,7 +632,7 @@ def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
     err, ok = _attn_err(got, want, name)
     rel, rel_ok = _row_rel_err(got, want, name)
     assert ok and rel_ok, (f"flash_attention disagrees at "
-                           f"{(B, S, H, KV, hd, name, mode)}: max abs {err}, "
+                           f"{(B, S, T, H, KV, hd, name, mode)}: max abs {err}, "
                            f"row-relative {rel}")
     out = torch.empty_like(q)
     scale = 1.0 / hd ** 0.5
@@ -629,18 +660,18 @@ def check_flash(gen, B, S, H, KV, hd, dtype, mode, window=0):
     library_dev_ms = device_ms(lib)
     library_g_ms = graph_ms(lib)
     # Operations over the (q, k) pairs the mask keeps (positions 0..S-1
-    # against 0..S-1): whatever tiles a kernel visits, these inputs need
+    # against 0..T-1): whatever tiles a kernel visits, these inputs need
     # no more.
     if mode == "full":
-        pairs = S * S
+        pairs = S * T
     else:
         reach = S if mode == "causal" else window
         pairs = sum(min(i + 1, reach) for i in range(S))
     flops = 4 * B * H * hd * pairs
-    nbytes = q.element_size() * (2 * B * S * H * hd + 2 * B * S * KV * hd)
+    nbytes = q.element_size() * (2 * B * S * H * hd + 2 * B * T * KV * hd)
     peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
     bms, by = bound(nbytes, flops, peak)
-    return dict(shape=dict(B=B, S=S, H=H, KV=KV, hd=hd, dtype=name,
+    return dict(shape=dict(B=B, S=S, T=T, H=H, KV=KV, hd=hd, dtype=name,
                            mode=mode, window=window),
                 route=route, max_abs_err=err, row_rel_err=rel, ms=ms,
                 device_ms=dev_ms, graph_ms=g_ms,
@@ -817,48 +848,83 @@ SERVE_BUDGET = 6.6e-4
 SERVE_NEW_TOKENS = 8
 
 
-def build_portfolio():
-    """The PortfolioServer of ARMS at full width on the card."""
+def init_arm(i, arch, tier, layers, tag="serve"):
+    """A ServedModel of ``arch``'s FULL config on the card, its depth cut
+    to ``layers`` when given, bf16 weights from seed ``i``, priced from
+    the FULL config."""
     import dataclasses
 
     import torch
 
     from repro_torch import configs
     from repro_torch.core.costs import price_from_active_params
+    from repro_torch.serving import ServedModel
+
+    full = configs.get_config(arch)
+    cfg = full
+    if layers is not None:
+        cfg = dataclasses.replace(full, num_layers=layers)
+        print(f"[{tag}] reduced: {arch} depth {full.num_layers} -> "
+              f"{layers} layers at full width (d_model {full.d_model}, "
+              f"{full.num_heads} heads, {full.num_kv_heads} kv heads, "
+              f"d_ff {full.d_ff}, vocab {full.vocab_size}): "
+              f"{full.total_params() * 2 / 1e9:.0f} GB of bf16 weights "
+              "do not fit one card")
+    pricing = price_from_active_params(arch, full.active_params(),
+                                       mean_req_tokens=600)
+    torch.cuda.synchronize()
+    t0, mem0 = time.perf_counter(), torch.cuda.memory_allocated()
+    model = ServedModel.init(cfg, pricing, tier, seed=i, device="cuda")
+    torch.cuda.synchronize()
+    gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    print(f"[{tag}] arm {i}: {arch} {cfg.num_layers} layers, "
+          f"{cfg.total_params() / 1e9:.3f} B params in {cfg.dtype}, "
+          f"{gb:.2f} GB on the card, ${pricing.price_per_1k:.3e}/1k tok "
+          f"({tier}), init {time.perf_counter() - t0:.2f} s")
+    return model
+
+
+def build_portfolio(arms=ARMS, tag="serve"):
+    """The PortfolioServer of ``arms`` at full width on the card."""
     from repro_torch.core.features import fit_pca_whitener, hash_encode_batch
     from repro_torch.core.types import RouterConfig
     from repro_torch.data import make_request_stream
-    from repro_torch.serving import PortfolioServer, ServedModel
+    from repro_torch.serving import PortfolioServer
 
-    models = []
-    for i, (arch, tier, layers) in enumerate(ARMS):
-        full = configs.get_config(arch)
-        cfg = full
-        if layers is not None:
-            cfg = dataclasses.replace(full, num_layers=layers)
-            print(f"[serve] reduced: {arch} depth {full.num_layers} -> "
-                  f"{layers} layers at full width (d_model {full.d_model}, "
-                  f"{full.num_heads} heads, {full.num_kv_heads} kv heads, "
-                  f"d_ff {full.d_ff}, vocab {full.vocab_size}): "
-                  f"{full.active_params() * 2 / 1e9:.0f} GB of bf16 weights "
-                  "do not fit one card")
-        pricing = price_from_active_params(arch, full.active_params(),
-                                           mean_req_tokens=600)
-        torch.cuda.synchronize()
-        t0, mem0 = time.perf_counter(), torch.cuda.memory_allocated()
-        models.append(ServedModel.init(cfg, pricing, tier, seed=i,
-                                       device="cuda"))
-        torch.cuda.synchronize()
-        gb = (torch.cuda.memory_allocated() - mem0) / 1e9
-        print(f"[serve] arm {i}: {arch} {cfg.num_layers} layers, "
-              f"{cfg.active_params() / 1e9:.3f} B params in {cfg.dtype}, "
-              f"{gb:.2f} GB on the card, ${pricing.price_per_1k:.3e}/1k tok "
-              f"({tier}), init {time.perf_counter() - t0:.2f} s")
+    models = [init_arm(i, *arm, tag=tag) for i, arm in enumerate(arms)]
     corpus = [r["prompt"] for r in make_request_stream(400, seed=7)]
     whitener = fit_pca_whitener(hash_encode_batch(corpus), device="cuda")
     return PortfolioServer(models, whitener, budget=SERVE_BUDGET,
                            router_cfg=RouterConfig(max_arms=8),
                            max_new_tokens=SERVE_NEW_TOKENS, device="cuda")
+
+
+def launches_per_request(cfg, new_tokens=SERVE_NEW_TOKENS):
+    """The served kernels' launches for one request (a prefill, then
+    ``new_tokens`` decode steps) of a model of ``cfg``: flash once per
+    attention layer in prefill (the hybrid's shared block once per
+    application; whisper's encoder layers and its decoder's cross-
+    attention too), decode once per attention layer per token (whisper's
+    cross-attention is an einsum), ssd_scan once per Mamba2 layer."""
+    attn = cfg.num_layers
+    if cfg.arch_type == "ssm":
+        attn = 0
+    elif cfg.arch_type == "hybrid":
+        attn = cfg.num_layers // cfg.shared_attn_every
+    cross = cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0
+    ssd = cfg.num_layers if cfg.arch_type in ("ssm", "hybrid") else 0
+    return {"flash_attention": attn + cross,
+            "decode_attention": attn * new_tokens, "ssd_scan": ssd}
+
+
+def expected_launches(models, counts):
+    """The served kernels' launches for ``counts[model name]`` requests of
+    each of ``models``."""
+    want = {"flash_attention": 0, "decode_attention": 0, "ssd_scan": 0}
+    for model in models:
+        for k, n in launches_per_request(model.cfg).items():
+            want[k] += counts.get(model.name, 0) * n
+    return want
 
 
 def serve_requests(server, stream, window=8):
@@ -891,14 +957,44 @@ def _prompt(model, text):
     return torch.as_tensor(toks[None], device="cuda")
 
 
-def teacher_forced(model, text, dtype, n_tokens=SERVE_NEW_TOKENS):
-    """One prompt and ``n_tokens`` fixed tokens through the kernel route
+def _seq_len(toks, extra):
+    """Positions a prefill of ``toks`` fills: the text, after the VLM's
+    frontend embeddings when given."""
+    fe = (extra or {}).get("frontend")
+    return toks.shape[1] + (0 if fe is None else fe.shape[1])
+
+
+@contextlib.contextmanager
+def top_k_choices():
+    """Records the experts every MoE layer chooses (each call's (N, K)
+    ids, in call order) while the context is open."""
+    from repro_torch.models import moe
+
+    inner, seen = moe._top_k, []
+
+    def spy(probs, k):
+        out = inner(probs, k)
+        seen.append(out[1])
+        return out
+    moe._top_k = spy
+    try:
+        yield seen
+    finally:
+        moe._top_k = inner
+
+
+def teacher_forced(model, text, dtype, n_tokens=SERVE_NEW_TOKENS,
+                   extra=None):
+    """One prompt (after ``extra``'s frontend embeddings or with its
+    encoder frames) and ``n_tokens`` fixed tokens through the kernel route
     and the plain route with activations in ``dtype`` (the served bf16
     weights cast at use): (max abs logit difference, within the bf16
     tolerance, within the f32 tolerance, greedy-token agreement over the
-    1 + n_tokens positions, and the max abs difference between two plain
+    1 + n_tokens positions, the max abs difference between two plain
     routes that differ only in the prefill's summation order: naive and
-    chunked)."""
+    chunked, and for an MoE model the (token, layer) top-k choices that
+    differ between the kernel and the plain route and their count, else
+    None)."""
     import dataclasses
 
     import numpy as np
@@ -907,28 +1003,57 @@ def teacher_forced(model, text, dtype, n_tokens=SERVE_NEW_TOKENS):
     from repro_torch.models import decode_step, prefill_forward
 
     cfg = dataclasses.replace(model.cfg, dtype=dtype)
+    extra = extra or {}
     toks = _prompt(model, text)
     fixed = np.random.default_rng(5).integers(2, cfg.vocab_size, n_tokens)
-    runs = {}
+    runs, choices = {}, {}
     for prefill_impl, decode_impl in (("cuda", "cuda"),
                                       ("chunked", "chunked"),
                                       ("naive", "chunked")):
-        logits, caches = prefill_forward(model.params, cfg, toks,
-                                         cache_len=toks.shape[1] + n_tokens,
-                                         impl=prefill_impl)
-        out = [logits]
-        for t in fixed:
-            cur = torch.full((1, 1), int(t), device="cuda")
-            logits, caches = decode_step(model.params, cfg, cur, caches,
-                                         decode_impl)
-            out.append(logits)
+        with top_k_choices() as seen:
+            logits, caches = prefill_forward(
+                model.params, cfg, toks,
+                cache_len=_seq_len(toks, extra) + n_tokens,
+                impl=prefill_impl, **extra)
+            out = [logits]
+            for t in fixed:
+                cur = torch.full((1, 1), int(t), device="cuda")
+                logits, caches = decode_step(model.params, cfg, cur, caches,
+                                             decode_impl)
+                out.append(logits)
         runs[prefill_impl] = torch.stack(out)
+        choices[prefill_impl] = seen
     err, ok = _attn_err(runs["cuda"], runs["chunked"], "bfloat16")
     _, ok32 = _attn_err(runs["cuda"], runs["chunked"], "float32")
     agree = float((runs["cuda"].argmax(-1) == runs["chunked"].argmax(-1))
                   .float().mean())
     plain_err, _ = _attn_err(runs["naive"], runs["chunked"], "bfloat16")
-    return err, ok, ok32, agree, plain_err
+    moe_diff = None
+    if cfg.is_moe:
+        pairs = list(zip(choices["cuda"], choices["chunked"]))
+        moe_diff = (sum(int((a != b).any(-1).sum()) for a, b in pairs),
+                    sum(a.shape[0] for a, _ in pairs))
+    return err, ok, ok32, agree, plain_err, moe_diff
+
+
+def generate_greedy(model, toks, extra, n=SERVE_NEW_TOKENS):
+    """``ServedModel.generate``'s greedy loop with ``extra`` inputs to the
+    prefill (the VLM's frontend embeddings, whisper's encoder frames),
+    which ``generate`` does not take: the n generated ids."""
+    import numpy as np
+
+    from repro_torch.models import decode_step, prefill_forward
+
+    logits, caches = prefill_forward(model.params, model.cfg, toks,
+                                     cache_len=_seq_len(toks, extra) + n,
+                                     **extra)
+    out = []
+    cur = logits.argmax(-1)[:, None]
+    for _ in range(n):
+        out.append(int(cur[0, 0]))
+        logits, caches = decode_step(model.params, model.cfg, cur, caches)
+        cur = logits.argmax(-1)[:, None]
+    return np.asarray(out, np.int32)
 
 
 # The served kernels' names (csrc/flash_attention.cu, decode_attention.cu,
@@ -937,11 +1062,12 @@ PORTED_KERNELS = ("flash_wgmma_kernel", "flash_kernel", "decode_split_kernel",
                   "decode_combine_kernel") + SSD_KERNELS
 
 
-def trace_request(model, text):
+def trace_request(model, text, extra=None):
     """Host ms of prefill, of one decode token and of one whole request
-    (prefill + 8 tokens), each the least of 7 synchronised calls; then the
-    request once under torch.profiler for its device busy ms and the
-    ported kernels' share of device time (flash_attention,
+    (prefill + 8 tokens; ``generate``, or ``generate_greedy`` with
+    ``extra`` prefill inputs), each the least of 7 synchronised calls;
+    then the request once under torch.profiler for its device busy ms and
+    the ported kernels' share of device time (flash_attention,
     decode_attention, ssd_scan). The idle share is 1 - busy / the
     unprofiled request time (the profiler slows the host)."""
     import torch
@@ -950,16 +1076,21 @@ def trace_request(model, text):
     from repro_torch.models import decode_step, prefill_forward
 
     toks = _prompt(model, text)
-    W = toks.shape[1] + SERVE_NEW_TOKENS
-    _, caches = prefill_forward(model.params, model.cfg, toks, cache_len=W)
+    W = _seq_len(toks, extra) + SERVE_NEW_TOKENS
+    extra = extra or {}
+    _, caches = prefill_forward(model.params, model.cfg, toks, cache_len=W,
+                                **extra)
     cur = torch.full((1, 1), 7, device="cuda")
     # decode_step writes its token's K/V at the same slot on every call
     # with these caches, so repeated calls time the same step (an SSM's
     # state moves on, at the same cost).
     ids = toks[0].cpu().numpy()
     request = lambda: model.generate(ids, SERVE_NEW_TOKENS)  # noqa: E731
+    if extra:
+        request = lambda: generate_greedy(model, toks, extra)  # noqa: E731
     prefill_ms, token_ms, wall_ms = host_ms([
-        lambda: prefill_forward(model.params, model.cfg, toks, cache_len=W),
+        lambda: prefill_forward(model.params, model.cfg, toks, cache_len=W,
+                                **extra),
         lambda: decode_step(model.params, model.cfg, cur, caches), request])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1523,9 +1654,12 @@ def tenant_compliance(n=32768, T=4, seeds=tuple(range(8))):
     return res.arms.size, secs
 
 
-def tenant_fleet_grid(n=8192, seeds=tuple(range(4))):
+def tenant_fleet_grid(n=4096, seeds=tuple(range(4))):
     """Phase 12 (c): a (tenant-table x seed) fleet grid as one run_grid
-    call against the looped evaluate.run calls: identical, both walls."""
+    call against the looped evaluate.run calls: identical, both walls.
+    n is half bench_tenants.py's smoke size (8,192), to keep the script
+    inside its time limit with phase 13; the identity does not depend
+    on n."""
     import numpy as np
 
     from repro_torch.core import evaluate, sweep, tenancy
@@ -1660,7 +1794,205 @@ def tenant_phase():
     return walls
 
 
+# Phase 13, the rest of the model zoo at full width: (arch, tier, layers
+# kept of the FULL config). The portfolio holds zamba2-2.7b and
+# phi-3-vision-4.2b whole and dbrx-132b at 4 of its 40 layers (~41 GB of
+# bf16 weights at once); llama4-maverick then has the card to itself at 2
+# of its 48 layers (one dense and one MoE layer, ~37 GB); whisper-medium
+# runs whole. Seeds follow the arms' order.
+ZOO_ARMS = (("zamba2-2.7b", "budget", None),
+            ("phi-3-vision-4.2b", "mid", None),
+            ("dbrx-132b", "frontier", 4))
+ZOO_LLAMA4 = ("llama4-maverick-400b-a17b", "frontier", 2)
+ZOO_WHISPER = ("whisper-medium", "mid", None)
+ZOO_REQUESTS = 24
+
+
+def zoo_phase(stream):
+    """Phase 13: the hybrid, MoE, VLM and encoder-decoder families on the
+    card at full width. The served kernels' counters are zeroed just
+    before each sub-phase's generates and read just after them; the
+    launches must equal the per-family count (``launches_per_request``),
+    every flash launch on the tensor cores, every ssd_scan launch on
+    one_chunk. Then each arm's teacher-forced logits (kernel route
+    against plain route) and its trace. Returns the served kernels'
+    launches summed over the sub-phases."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.decode_attention import ops as decode_ops
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.serving.tokenizer import HashTokenizer
+
+    ops = {"flash_attention": flash_ops, "decode_attention": decode_ops,
+           "ssd_scan": ssd_ops}
+    total = dict.fromkeys(ops, 0)
+    missed = []
+
+    def zero():
+        for mod in ops.values():
+            mod.LAUNCHES[0] = 0
+        for routes in (flash_ops.ROUTE_LAUNCHES, ssd_ops.ROUTE_LAUNCHES):
+            for r in routes:
+                routes[r] = 0
+
+    def read(label, want):
+        got = {k: mod.LAUNCHES[0] for k, mod in ops.items()}
+        flash_routes = dict(flash_ops.ROUTE_LAUNCHES)
+        ssd_routes = dict(ssd_ops.ROUTE_LAUNCHES)
+        print(f"[zoo] {label}: served-kernel launches {got}, expected from "
+              f"the families {want}; flash_attention by route "
+              f"{flash_routes}, ssd_scan by route {ssd_routes}")
+        assert got == want, (label, got, want)
+        assert flash_routes["tensor_cores"] == got["flash_attention"], (
+            flash_routes)
+        assert ssd_routes["one_chunk"] == got["ssd_scan"], ssd_routes
+        for k in total:
+            total[k] += got[k]
+
+    def check(model, label, extra=None):
+        """Teacher-forced logits in bf16 and f32 and the trace of one
+        request. f32 is held to phase 8's bar; bf16 to 2x what two plain
+        routes differ by, but for MoE arms, where a one-ulp change can
+        send a token to another expert, the bf16 ratio is printed beside
+        the count of (token, layer) choices that differ."""
+        for dtype in ("bfloat16", "float32"):
+            err, ok, ok32, agree, plain_err, moe_diff = teacher_forced(
+                model, stream[0]["prompt"], dtype, extra=extra)
+            diff = ("" if moe_diff is None else
+                    f"; MoE top-k choices that differ between the routes "
+                    f"{moe_diff[0]} of {moe_diff[1]} (token, layer) rows")
+            print(f"[zoo] teacher-forced {label} {dtype} activations: max "
+                  f"|logit diff| {err:.4e} (bf16 tolerance "
+                  f"{'met' if ok else 'missed'}, f32 tolerance "
+                  f"{'met' if ok32 else 'missed'}), greedy-token agreement "
+                  f"{agree:.4f}; two plain routes differ by {plain_err:.4e}"
+                  f" (kernel route / that "
+                  f"{err / plain_err if plain_err else float('nan'):.3f})"
+                  f"{diff}")
+            if dtype == "float32" and not ok:
+                missed.append(f"{label} f32")
+            if (dtype == "bfloat16" and moe_diff is None
+                    and err > TEACHER_BF16_FACTOR * plain_err):
+                missed.append(f"{label} bf16: {err:.4e} > "
+                              f"{TEACHER_BF16_FACTOR} x {plain_err:.4e}")
+        t = trace_request(model, stream[0]["prompt"], extra)
+        print(f"[zoo] trace {label} one request: prefill "
+              f"{t['prefill_ms']:.3f} ms host clock, one decode token "
+              f"{t['token_ms']:.3f} ms; whole request (prefill + "
+              f"{SERVE_NEW_TOKENS} tokens) {t['request_ms']:.3f} ms, device "
+              f"busy {t['busy_ms']:.3f} ms in {t['kernels']} kernels (idle "
+              f"share {t['idle_share']:.4f}), ported kernels "
+              f"{t['ported_ms']:.3f} ms ({t['ported_share']:.4f} of "
+              f"device time): {json.dumps(t['ported_by_kernel'])}")
+
+    def wall(label, t0):
+        torch.cuda.synchronize()
+        print(f"[zoo] {label} wall {time.perf_counter() - t0:.1f} s; peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+        torch.cuda.reset_peak_memory_stats()
+
+    def frames(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randn(shape, generator=g, device="cuda")
+
+    # (a) A portfolio of zamba2-2.7b, phi-3-vision (text) and dbrx-132b.
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    server = build_portfolio(ZOO_ARMS, tag="zoo")
+    arms = server.models[:len(ZOO_ARMS)]
+    print(f"[zoo] (a) portfolio on the card: "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+    zero()
+    for model in arms:
+        t1 = time.perf_counter()
+        out = model.generate(
+            server._tokenizer(model).encode(stream[0]["prompt"]),
+            SERVE_NEW_TOKENS)
+        torch.cuda.synchronize()
+        assert out.shape == (SERVE_NEW_TOKENS,)
+        assert ((0 <= out) & (out < model.cfg.vocab_size)).all()
+        print(f"[zoo] {model.name} first generate {out.tolist()} in "
+              f"{time.perf_counter() - t1:.3f} s")
+    t1 = time.perf_counter()
+    results = serve_requests(server, stream[:ZOO_REQUESTS])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t1
+    traffic = {m.name: 0 for m in arms}
+    for r in results:
+        traffic[r.model] += 1
+        assert r.tokens_out == SERVE_NEW_TOKENS
+    reward = float(np.mean([r.reward for r in results]))
+    cost = float(np.mean([r.cost for r in results]))
+    assert len(results) == ZOO_REQUESTS and np.isfinite([reward, cost]).all()
+    print(f"[zoo] (a) served {len(results)} requests in {secs:.3f} s: "
+          f"reward {reward:.4f}, cost {cost:.4e}/req, traffic {traffic}, "
+          f"lambda {float(server.state.pacer.lam[0]):.6f}")
+    read("(a) first generates + the requests", expected_launches(
+        arms, {m.name: traffic[m.name] + 1 for m in arms}))
+    for model in arms:
+        check(model, model.name)
+    del server, arms, model, results
+    torch.cuda.empty_cache()
+    wall("(a)", t0)
+
+    # (b) llama4-maverick, the card to itself: two generates.
+    t0 = time.perf_counter()
+    model = init_arm(len(ZOO_ARMS), *ZOO_LLAMA4, tag="zoo")
+    zero()
+    for req in stream[:2]:
+        ids = HashTokenizer(model.cfg.vocab_size).encode(req["prompt"])
+        out = model.generate(ids, SERVE_NEW_TOKENS)
+        assert ((0 <= out) & (out < model.cfg.vocab_size)).all()
+        print(f"[zoo] {model.name} generate {out.tolist()}")
+    read("(b) two generates", expected_launches([model], {model.name: 2}))
+    check(model, model.name)
+    del model
+    torch.cuda.empty_cache()
+    wall("(b)", t0)
+
+    # (c) whisper-medium on (1, 1,500, 80) frames and a 32-token prompt.
+    t0 = time.perf_counter()
+    model = init_arm(len(ZOO_ARMS) + 1, *ZOO_WHISPER, tag="zoo")
+    cfg = model.cfg
+    extra = {"encoder_frames": frames((1, cfg.encoder_seq, cfg.frontend_dim),
+                                      11)}
+    zero()
+    out = generate_greedy(model, _prompt(model, stream[0]["prompt"]), extra)
+    assert ((0 <= out) & (out < cfg.vocab_size)).all()
+    print(f"[zoo] {model.name} prefill_forward + {SERVE_NEW_TOKENS} "
+          f"decode_steps {out.tolist()}")
+    read("(c) one request", expected_launches([model], {model.name: 1}))
+    check(model, model.name, extra)
+    del model, extra
+    torch.cuda.empty_cache()
+    wall("(c)", t0)
+
+    # (d) phi-3-vision's image path: 576 patch embeddings (width 1,024)
+    # before the prompt.
+    t0 = time.perf_counter()
+    model = init_arm(1, *ZOO_ARMS[1], tag="zoo")
+    cfg = model.cfg
+    extra = {"frontend": frames((1, cfg.frontend_tokens, cfg.frontend_dim),
+                                12)}
+    zero()
+    out = generate_greedy(model, _prompt(model, stream[0]["prompt"]), extra)
+    assert ((0 <= out) & (out < cfg.vocab_size)).all()
+    print(f"[zoo] {model.name} with its image: prefill_forward + "
+          f"{SERVE_NEW_TOKENS} decode_steps {out.tolist()}")
+    read("(d) one request with the image",
+         expected_launches([model], {model.name: 1}))
+    check(model, f"{model.name} image", extra)
+    del model, extra
+    torch.cuda.empty_cache()
+    wall("(d)", t0)
+    assert not missed, f"kernel route and plain route disagree: {missed}"
+    return total
+
+
 def main() -> int:
+    start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1828,6 +2160,14 @@ def main() -> int:
         check_flash(gen, 1, 2048, 64, 8, 128, bf16, "sliding", 512),
         check_flash(gen, 1, 2048, 64, 8, 128, bf16, "full"),
         check_flash(gen, 2, 40, 8, 2, 32, f32, "causal"),
+        # phase 13's prefills: zamba2-2.7b's shared block (hd 80),
+        # phi-3-vision's 576 patches + 32 tokens (hd 96), whisper-medium's
+        # encoder (full, T = 1,500: a ragged last key tile) and its
+        # cross-attention (32 queries against the 1,500 frames)
+        check_flash(gen, 1, 32, 32, 32, 80, bf16, "causal"),
+        check_flash(gen, 1, 608, 32, 32, 96, bf16, "causal"),
+        check_flash(gen, 1, 1500, 16, 16, 64, bf16, "full"),
+        check_flash(gen, 1, 32, 16, 16, 64, bf16, "full", T=1500),
     ]
     decode_checks = [
         # the served tokens: a 32-token prompt + 8 new ones, W = 40
@@ -1838,12 +2178,21 @@ def main() -> int:
         check_decode(gen, 2, 40, 8, 2, 32, f32, pos=35),
         # a row with no valid slot: the mean of V, through the combine
         check_decode(gen, 1, 1024, 16, 2, 128, bf16, pos=None),
+        # phase 13's tokens: zamba2-2.7b (hd 80), phi-3-vision after its
+        # image (W = 616, hd 96), whisper-medium (hd 64), all G = 1;
+        # dbrx-132b (G = 6) and llama4-maverick (G = 5) at hd 128
+        check_decode(gen, 1, 40, 32, 32, 80, bf16, pos=39),
+        check_decode(gen, 1, 616, 32, 32, 96, bf16, pos=615),
+        check_decode(gen, 1, 40, 16, 16, 64, bf16, pos=39),
+        check_decode(gen, 1, 40, 48, 8, 128, bf16, pos=39),
+        check_decode(gen, 1, 40, 40, 8, 128, bf16, pos=39),
     ]
     ssd_checks = [
         check_ssd(gen, 1, 32, 32, 64, 128, bf16),      # the served prompts
         check_ssd(gen, 1, 128, 32, 64, 128, bf16),     # the longest prompt
         check_ssd(gen, 1, 2048, 32, 64, 128, bf16),    # 16 chunks
         check_ssd(gen, 2, 40, 4, 8, 16, f32, chunk=16),  # ragged L
+        check_ssd(gen, 1, 32, 80, 64, 64, bf16),       # zamba2-2.7b's
     ]
     for c in flash_checks + decode_checks + ssd_checks:
         print(f"[kernel] {json.dumps(c)}")
@@ -1855,21 +2204,6 @@ def main() -> int:
     stream = make_request_stream(24, seed=11)
     served_ops = {"flash_attention": flash_ops,
                   "decode_attention": decode_ops, "ssd_scan": ssd_ops}
-
-    def expected(counts):
-        """Launches of the served kernels for ``counts[arm name]``
-        requests: flash once per attention layer per request, decode once
-        per attention layer per generated token, ssd_scan once per mamba2
-        layer per request."""
-        want = dict.fromkeys(served_ops, 0)
-        for model in arms:
-            n, L = counts.get(model.name, 0), model.cfg.num_layers
-            if model.cfg.arch_type == "ssm":
-                want["ssd_scan"] += n * L
-            else:
-                want["flash_attention"] += n * L
-                want["decode_attention"] += n * L * SERVE_NEW_TOKENS
-        return want
 
     for mod in served_ops.values():
         mod.LAUNCHES[0] = 0
@@ -1888,7 +2222,7 @@ def main() -> int:
         print(f"[serve] {model.name} first generate {out.tolist()} in "
               f"{time.perf_counter() - t0:.3f} s")
     first = {k: mod.LAUNCHES[0] for k, mod in served_ops.items()}
-    assert first == expected({m.name: 1 for m in arms}), first
+    assert first == expected_launches(arms, {m.name: 1 for m in arms}), first
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = serve_requests(server, stream)
@@ -1912,8 +2246,9 @@ def main() -> int:
     served_launches = {k: launches[k] - first[k] for k in served_ops}
     print(f"[serve] served-kernel launches: first generates {first}; the "
           f"24 requests {served_launches}, expected from the traffic "
-          f"{expected(traffic)}")
-    assert served_launches == expected(traffic), served_launches
+          f"{expected_launches(arms, traffic)}")
+    assert served_launches == expected_launches(arms, traffic), (
+        served_launches)
     for name in served_ops:
         assert launches[name] > 0, f"{name} was not launched on the path"
     # The served models are bf16 with hd = 128: every prefill must have
@@ -1940,7 +2275,7 @@ def main() -> int:
     missed = []
     for model in arms:
         for dtype in ("bfloat16", "float32"):
-            err, ok, ok32, agree, plain_err = teacher_forced(
+            err, ok, ok32, agree, plain_err, _ = teacher_forced(
                 model, stream[0]["prompt"], dtype)
             print(f"[serve] teacher-forced {model.name} {dtype} "
                   f"activations: max |logit diff| {err:.4e} (bf16 tolerance "
@@ -2014,6 +2349,15 @@ def main() -> int:
           f"tenant mode runs no kernel)")
     assert tenant_launches == {"linucb_score": 0, "linucb_step": 0}
 
+    # Phase 13: the rest of the model zoo at full width, after phase 7's
+    # portfolio has left the card.
+    del server, arms, model, results
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    zoo_launches = zoo_phase(stream)
+    print(f"[zoo] phase wall {time.perf_counter() - t0:.1f} s; served-kernel "
+          f"launches {zoo_launches}")
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -2045,6 +2389,7 @@ def main() -> int:
     for k in kernels:
         if k["name"] in served_launches:
             k["launches_served"] = served_launches[k["name"]]
+            k["launches_zoo"] = zoo_launches[k["name"]]
     kernels[1]["launches_by_route"] = step_routes
     kernels[1]["launches_scenario_by_route"] = scenario_routes
     kernels[1]["launches_sweep_by_route"] = sweep_routes
@@ -2052,6 +2397,8 @@ def main() -> int:
         k["launches_tenants"] = tenant_launches[k["name"]]
     kernels[2]["launches_by_route"] = flash_routes
     kernels[4]["launches_by_route"] = ssd_routes
+    print(f"[wall] chip_smoke.py {time.perf_counter() - start:.1f} s, the "
+          f"kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,37 +1,32 @@
-"""Architecture registry of the port: the dense and SSM architectures it
-serves. ``get_config(id)`` / ``get_smoke(id)`` as in the JAX package; the
-JAX package's other architectures raise ``NotImplementedError`` until
-their family is ported.
+"""Architecture registry of the port: the JAX package's ten architectures.
+``get_config(id)`` / ``get_smoke(id)`` / ``all_configs()`` as in the JAX
+package, each config a copy of the JAX file's ``FULL`` and ``SMOKE``.
 """
 from __future__ import annotations
 
 import importlib
-from typing import List
+from typing import Dict, List
 
 from repro_torch.models.config import ModelConfig
 
-# arch id -> module name (the dense and SSM families)
+# arch id -> module name, in the JAX package's order
 ARCH_MODULES = {
-    "deepseek-7b": "deepseek_7b",
-    "olmo-1b": "olmo_1b",
     "mamba2-370m": "mamba2_370m",
+    "deepseek-7b": "deepseek_7b",
+    "zamba2-2.7b": "zamba2_2p7b",
+    "olmo-1b": "olmo_1b",
+    "dbrx-132b": "dbrx_132b",
+    "phi-3-vision-4.2b": "phi3_vision_4p2b",
     "deepseek-67b": "deepseek_67b",
+    "whisper-medium": "whisper_medium",
     "command-r-35b": "command_r_35b",
+    "llama4-maverick-400b-a17b": "llama4_maverick_400b",
 }
-
-# The JAX package's architectures of families the port does not run yet.
-NOT_PORTED = ("zamba2-2.7b", "dbrx-132b",
-              "phi-3-vision-4.2b", "whisper-medium",
-              "llama4-maverick-400b-a17b")
 
 ARCH_IDS: List[str] = list(ARCH_MODULES)
 
 
 def _module(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch_id}: its family is not ported yet; the port serves "
-            f"{ARCH_IDS}")
     return importlib.import_module(
         f"repro_torch.configs.{ARCH_MODULES[arch_id]}")
 
@@ -43,3 +38,6 @@ def get_config(arch_id: str) -> ModelConfig:
 def get_smoke(arch_id: str) -> ModelConfig:
     return _module(arch_id).SMOKE
 
+
+def all_configs() -> Dict[str, ModelConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

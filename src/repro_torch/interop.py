@@ -26,7 +26,7 @@ from repro_torch.core.types import (
     HYPER_FIELDS, ArmPrior, HyperParams, PacerState, RouterState,
 )
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import DecodeCaches
+from repro_torch.models.transformer import DecodeCaches, stack_sizes
 
 _F32 = ("A", "A_inv", "b", "theta", "price", "c_tilde")
 _I32 = ("last_upd", "last_play", "t", "force_arm", "force_left")
@@ -143,17 +143,24 @@ def env_to_numpy(env: Environment) -> dict:
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
-    """The port's parameters from a JAX ``init_model`` tree: the same nested
-    dicts, per-layer leaves stacked on axis 0, weights in JAX's
-    ``(d_in, d_out)`` layout, f32 as JAX stores them."""
+    """The port's parameters from a JAX ``init_model`` tree of any family:
+    the same nested dicts, per-layer leaves stacked on axis 0, weights in
+    JAX's ``(d_in, d_out)`` layout, f32 as JAX stores them. Each stacked
+    subtree must have the config's layers (``transformer.stack_sizes``),
+    and the hybrid's ``shared_attn`` must be one unstacked block."""
     if not isinstance(tree, Mapping):
         return torch.as_tensor(np.array(tree, np.float32), device=device)
     out = {k: params_from_numpy(v, cfg, device) for k, v in tree.items()}
-    if "blocks" in out:
-        L = next(iter(_leaves(out["blocks"]))).shape[0]
-        if L != cfg.num_layers:
-            raise ValueError(f"{cfg.name}: tree has {L} stacked layers, "
-                             f"config {cfg.num_layers}")
+    if "embed" in out:                  # the top of a model tree
+        for name, n in stack_sizes(cfg).items():
+            L = next(iter(_leaves(out[name]))).shape[0] if name in out else 0
+            if L != n:
+                raise ValueError(f"{cfg.name}: {name} has {L} stacked "
+                                 f"layers, config {n}")
+        if "shared_attn" in out and out["shared_attn"]["attn"][
+                "w_q"].dim() != 2:
+            raise ValueError(f"{cfg.name}: shared_attn is stacked; the "
+                             "hybrid's shared block is one block")
     return out
 
 
@@ -172,15 +179,17 @@ def params_to_numpy(params) -> dict:
     return {k: params_to_numpy(v) for k, v in params.items()}
 
 
-_CACHE_FIELDS = ("k", "v", "ssm_conv", "ssm_h")
+_CACHE_FIELDS = ("k", "v", "ssm_conv", "ssm_h", "shared_k", "shared_v",
+                 "cross_k", "cross_v")
 
 
 def caches_from_numpy(caches, device) -> DecodeCaches:
-    """The port's ``DecodeCaches`` from a JAX ``DecodeCaches`` of the dense
-    family (``k``, ``v``) or the SSM family (``ssm_conv``, ``ssm_h``), and
-    its scalar ``pos``; the absent stacks stay None."""
+    """The port's ``DecodeCaches`` from a JAX ``DecodeCaches`` of any
+    family (or a mapping of its stacks), and its scalar ``pos``; the
+    stacks it does not hold stay None."""
     def tensor(name):
-        a = _get(caches, name)
+        a = (caches.get(name) if isinstance(caches, Mapping)
+             else getattr(caches, name, None))
         return None if a is None else torch.as_tensor(np.array(a),
                                                       device=device)
     return DecodeCaches(**{n: tensor(n) for n in _CACHE_FIELDS},

@@ -12,8 +12,11 @@ on ``--device`` (default ``cuda``; ``cpu`` runs every kernel's plain
 version).
 
 The default trio is the JAX driver's: olmo-1b, mamba2-370m (an SSM),
-deepseek-67b. ``--dry-run`` is not ported yet and raises
-``NotImplementedError``.
+deepseek-67b. ``--arch`` takes any of the ten ids of
+``repro_torch.configs.ARCH_IDS``; whisper-medium's prefill needs encoder
+frames that ``ServedModel.generate`` does not pass, so a request routed
+to it raises ``ValueError`` (the JAX driver fails there too).
+``--dry-run`` is not ported yet and raises ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,10 +26,13 @@ DEFAULT_ARCHS = ("olmo-1b", "mamba2-370m", "deepseek-67b")
 
 
 def main(argv=None):
+    from repro_torch import configs
+
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=60)
     ap.add_argument("--budget", type=float, default=6.6e-4)
     ap.add_argument("--arch", action="append", default=None,
+                    choices=configs.ARCH_IDS,
                     help="portfolio member (repeatable); default "
                     f"{', '.join(DEFAULT_ARCHS)}")
     ap.add_argument("--window", type=int, default=8,
@@ -51,7 +57,6 @@ def main(argv=None):
 
     import numpy as np
 
-    from repro_torch import configs
     from repro_torch.core.costs import price_from_active_params
     from repro_torch.core.features import fit_pca_whitener, hash_encode_batch
     from repro_torch.core.types import RouterConfig

@@ -1,5 +1,6 @@
-"""Model substrate of the port: the dense decoder and SSM (Mamba2)
-families in PyTorch."""
+"""Model substrate of the port in PyTorch: every family of the JAX
+package's model zoo (dense, SSM, hybrid, MoE, VLM and encoder-decoder
+audio)."""
 from repro_torch.models.config import ModelConfig  # noqa: F401
 from repro_torch.models.transformer import (  # noqa: F401
     DecodeCaches,

@@ -1,4 +1,5 @@
-"""GQA attention: causal, sliding-window and full masks; prefill and decode.
+"""GQA attention: causal, sliding-window, bidirectional and cross;
+prefill and decode.
 
 Three interchangeable inner implementations (``impl``), as in the JAX
 package, with the hand-written kernel in the place of its Pallas one:
@@ -50,20 +51,24 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, *, device,
     return p
 
 
-def qkv_project(p, cfg: ModelConfig, x: Tensor):
-    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, S, KV, hd)."""
+def qkv_project(p, cfg: ModelConfig, x: Tensor,
+                kv_src: Optional[Tensor] = None):
+    """x: (B, S, D) -> q (B, S, H, hd), k/v (B, T, KV, hd); K and V come
+    from ``kv_src`` (B, T, D) when given (cross-attention), else from x."""
     dt = x.dtype
     B, S, _ = x.shape
+    src = x if kv_src is None else kv_src
+    T = src.shape[1]
     q = x @ p["w_q"].to(dt)
-    k = x @ p["w_k"].to(dt)
-    v = x @ p["w_v"].to(dt)
+    k = src @ p["w_k"].to(dt)
+    v = src @ p["w_v"].to(dt)
     if "b_q" in p:
         q = q + p["b_q"].to(dt)
         k = k + p["b_k"].to(dt)
         v = v + p["b_v"].to(dt)
     return (q.reshape(B, S, cfg.num_heads, cfg.hd),
-            k.reshape(B, S, cfg.num_kv_heads, cfg.hd),
-            v.reshape(B, S, cfg.num_kv_heads, cfg.hd))
+            k.reshape(B, T, cfg.num_kv_heads, cfg.hd),
+            v.reshape(B, T, cfg.num_kv_heads, cfg.hd))
 
 
 def _expand_kv(k: Tensor, groups: int) -> Tensor:
@@ -151,32 +156,37 @@ def attention(
     x: Tensor,
     positions: Tensor,
     *,
+    kv_src: Optional[Tensor] = None,
+    kv_positions: Optional[Tensor] = None,
     mode: str = "causal",
+    rope: bool = True,
     impl: Optional[str] = None,
     return_kv: bool = False,
 ):
-    """Self-attention block (projections + RoPE + inner attention +
+    """Full attention block (projections + RoPE + inner attention +
     output projection).
 
-    x: (B, S, D); positions: (S,) absolute positions. return_kv=True also
-    returns the (roped) K and V, the cache content a batched prefill
-    emits. The ``cuda`` route, like the TPU op it replaces, assumes
-    positions 0..S-1 (prefill). The JAX package's cross-attention
-    arguments belong to the encoder-decoder family, not ported yet.
+    x: (B, S, D); positions: (S,) absolute positions. kv_src: the
+    encoder's output (B, T, D) for cross-attention (mode="full",
+    rope=False), with ``kv_positions`` (T,). return_kv=True also returns
+    the (roped) K and V, the cache content a batched prefill emits. The
+    ``cuda`` route, like the TPU op it replaces, assumes positions 0..S-1
+    and 0..T-1 (prefill; full mode ignores them).
     """
     B, S, _ = x.shape
     impl = _impl(impl, x)
-    q, k, v = qkv_project(p, cfg, x)
-    pos = positions.expand(B, S)
-    q = layers.apply_rope(q, pos, cfg.rope_theta)
-    k = layers.apply_rope(k, pos, cfg.rope_theta)
+    q, k, v = qkv_project(p, cfg, x, kv_src)
+    k_pos = positions if kv_positions is None else kv_positions
+    if rope:
+        q = layers.apply_rope(q, positions.expand(B, S), cfg.rope_theta)
+        k = layers.apply_rope(k, k_pos.expand(B, k.shape[1]), cfg.rope_theta)
     window = cfg.window
     if mode == "causal" and window > 0:
         mode = "sliding"
     if impl == "naive":
-        out = naive_attention(q, k, v, positions, positions, mode, window)
+        out = naive_attention(q, k, v, positions, k_pos, mode, window)
     elif impl == "chunked":
-        out = chunked_attention(q, k, v, positions, positions, mode, window)
+        out = chunked_attention(q, k, v, positions, k_pos, mode, window)
     elif impl == "cuda":
         from repro_torch.kernels.flash_attention import ops as fa_ops
         out = fa_ops.flash_attention(q, k, v, mode=mode, window=window)

@@ -3,9 +3,8 @@ serves.
 
 One frozen dataclass covers dense / MoE / SSM / hybrid / VLM / audio, as in
 the JAX package, so configs and parameter counts (which price the arms)
-are the same; this port runs the dense and SSM families
-(``models/transformer.py`` raises ``NotImplementedError`` for the others). ``torch_dtype`` and
-``kv_torch_dtype`` take the place of JAX's ``dtype_jnp``/``kv_dtype_jnp``.
+are the same. ``torch_dtype`` and ``kv_torch_dtype`` take the place of
+JAX's ``dtype_jnp``/``kv_dtype_jnp``.
 """
 from __future__ import annotations
 

@@ -1,20 +1,37 @@
-"""Model assembly for the dense decoder and SSM (Mamba2) families.
+"""Model assembly for every architecture family of the JAX package.
 
 Parameters are nested dicts of tensors with per-layer leaves stacked on
-axis 0, the JAX package's tree; its ``lax.scan`` over layers is a loop
-over that axis here. Entry points:
+axis 0, the JAX package's tree; its ``lax.scan`` over layers (and over
+groups of layers) is a loop over that axis here. Entry points:
 
   * ``prefill_forward`` — one full-sequence pass that emits the decode
-    caches (roped K/V in ring-buffer layout, or the SSM conv windows and
-    states) and last-token logits: the serving path.
+    caches and the last token's logits: the serving path.
   * ``prefill``         — the token-by-token oracle through ``decode_step``.
   * ``decode_step``     — one token against the caches.
 
-``impl`` selects the attention route (``models/attention.py``) and the
-SSD scan's (``models/ssm.py``); None is the CUDA kernels on the card and
-the plain route on the CPU. The MoE, hybrid, encoder-decoder and VLM
-families, and fp8 KV caches, are not ported yet: they raise
-``NotImplementedError``.
+Families (``cfg.arch_type``):
+
+  * ``dense`` — attention blocks; ``ssm`` — Mamba2 blocks.
+  * ``hybrid`` (Zamba2) — groups of ``shared_attn_every`` Mamba2 blocks,
+    each group followed by one application of the parameter-shared
+    attention block, which has its own entry of the secondary cache stack
+    (``shared_k`` / ``shared_v``).
+  * ``moe`` — attention + MoE FFN blocks (``models/moe.py``). With
+    ``moe_every > 1`` (Llama-4) each MoE block follows ``moe_every - 1``
+    dense blocks, whose caches are the secondary stack.
+  * ``vlm`` — dense blocks behind early fusion: ``frontend=`` embeddings
+    (the vision tower is a stub, as in the JAX package) are projected and
+    put before the text.
+  * ``audio`` (Whisper) — a bidirectional encoder over the stubbed
+    frontend's ``encoder_frames=`` and decoder blocks that cross-attend to
+    its output; prefill stores each layer's cross K/V (``cross_k`` /
+    ``cross_v``) for decode.
+
+``impl`` selects the attention route (``models/attention.py``) and the SSD
+scan's (``models/ssm.py``); None is the CUDA kernels on the card and the
+plain route on the CPU. Decode's cross-attention is an einsum over the
+encoder's frames, as in the JAX package. KV caches in another dtype than
+the model's are not ported yet: they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -23,58 +40,118 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core.types import resolve_device
-from repro_torch.models import attention, layers, ssm
+from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
 
 
 def _check_ported(cfg: ModelConfig) -> None:
-    if (cfg.arch_type not in ("dense", "ssm") or cfg.is_encdec
-            or cfg.frontend_tokens):
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type={cfg.arch_type!r} is not ported yet; "
-            "the PyTorch port serves the dense and SSM families")
     if cfg.kv_dtype and cfg.kv_dtype != cfg.dtype:
         raise NotImplementedError(
             f"{cfg.name}: kv_dtype={cfg.kv_dtype!r} (a KV cache in another "
             "dtype than the model's) is not ported yet")
 
 
+def _need_frames(cfg: ModelConfig, frames: Optional[Tensor]) -> None:
+    if frames is None:
+        raise ValueError(
+            f"{cfg.name}: an encoder-decoder model needs encoder_frames (B, "
+            f"T, {cfg.frontend_dim or cfg.d_model}), its frontend's frame "
+            "features; none were given")
+
+
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
 
+def _init_attn_block(gen, cfg: ModelConfig, *, cross: bool = False,
+                     lead: tuple = (), **kw):
+    D = cfg.d_model
+    p = {
+        "ln1": layers.init_norm(cfg.norm, D, lead=lead, **kw),
+        "attn": attention.init_attention(gen, cfg, lead=lead, **kw),
+        "ln2": layers.init_norm(cfg.norm, D, lead=lead, **kw),
+        "mlp": layers.init_mlp(gen, cfg.mlp, D, cfg.d_ff, lead=lead, **kw),
+    }
+    if cross:
+        p["ln_x"] = layers.init_norm(cfg.norm, D, lead=lead, **kw)
+        p["xattn"] = attention.init_attention(gen, cfg, lead=lead, **kw)
+    return p
+
+
+def _init_moe_block(gen, cfg: ModelConfig, *, lead: tuple, **kw):
+    D = cfg.d_model
+    return {
+        "ln1": layers.init_norm(cfg.norm, D, lead=lead, **kw),
+        "attn": attention.init_attention(gen, cfg, lead=lead, **kw),
+        "ln2": layers.init_norm(cfg.norm, D, lead=lead, **kw),
+        "moe": moe.init_moe(gen, cfg, lead=lead, **kw),
+    }
+
+
+def _init_ssm_block(gen, cfg: ModelConfig, *, lead: tuple, **kw):
+    return {
+        "ln1": layers.init_norm(cfg.norm, cfg.d_model, lead=lead, **kw),
+        "mixer": ssm.init_mamba2(gen, cfg, lead=lead, **kw),
+    }
+
+
+def stack_sizes(cfg: ModelConfig) -> Dict[str, int]:
+    """The layer axis of each stacked subtree of ``init_model``'s tree (the
+    hybrid's ``shared_attn`` is one unstacked block)."""
+    n = {"blocks": cfg.num_layers}
+    if cfg.arch_type == "moe":
+        n["blocks"] = cfg.num_layers // cfg.moe_every
+        if cfg.moe_every > 1:
+            n["dense_blocks"] = cfg.num_layers - n["blocks"]
+    if cfg.is_encdec:
+        n["encoder_blocks"] = cfg.encoder_layers
+    return n
+
+
 def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
-    """Random parameters with the JAX package's distributions, drawn from
-    a generator on ``device`` seeded with ``seed``. ``dtype`` is the
-    storage dtype: f32 master weights as in the JAX package, or the
-    config's compute dtype for serving, which gives the values JAX's cast
-    at use gives."""
+    """Random parameters with the JAX package's distributions and tree,
+    drawn from a generator on ``device`` seeded with ``seed``. ``dtype``
+    is the storage dtype: f32 master weights as in the JAX package, or
+    the config's compute dtype for serving, which gives the values JAX's
+    cast at use gives."""
     _check_ported(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     kw = dict(device=device, dtype=dtype)
-    D, L = cfg.d_model, (cfg.num_layers,)
+    D = cfg.d_model
+    n = stack_sizes(cfg)
     params: Dict[str, Any] = {
         "embed": layers.embed_init(gen, cfg.vocab_size, D, **kw),
         "final_norm": layers.init_norm(cfg.norm, D, **kw),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = layers.dense_init(gen, D, cfg.vocab_size, **kw)
-    if cfg.arch_type == "ssm":
-        params["blocks"] = {
-            "ln1": layers.init_norm(cfg.norm, D, lead=L, **kw),
-            "mixer": ssm.init_mamba2(gen, cfg, lead=L, **kw),
-        }
-        return params
-    params["blocks"] = {
-        "ln1": layers.init_norm(cfg.norm, D, lead=L, **kw),
-        "attn": attention.init_attention(gen, cfg, lead=L, **kw),
-        "ln2": layers.init_norm(cfg.norm, D, lead=L, **kw),
-        "mlp": layers.init_mlp(gen, cfg.mlp, D, cfg.d_ff, lead=L, **kw),
-    }
+    if cfg.arch_type in ("dense", "vlm", "audio"):
+        params["blocks"] = _init_attn_block(
+            gen, cfg, cross=cfg.is_encdec, lead=(n["blocks"],), **kw)
+    elif cfg.arch_type == "moe":
+        params["blocks"] = _init_moe_block(gen, cfg, lead=(n["blocks"],),
+                                           **kw)
+        if "dense_blocks" in n:  # interleaved dense layers (Llama-4 style)
+            params["dense_blocks"] = _init_attn_block(
+                gen, cfg, lead=(n["dense_blocks"],), **kw)
+    elif cfg.arch_type in ("ssm", "hybrid"):
+        params["blocks"] = _init_ssm_block(gen, cfg, lead=(n["blocks"],),
+                                           **kw)
+    else:
+        raise ValueError(cfg.arch_type)
+    if cfg.arch_type == "hybrid":
+        params["shared_attn"] = _init_attn_block(gen, cfg, **kw)
+    if cfg.is_encdec:
+        params["encoder_blocks"] = _init_attn_block(
+            gen, cfg, lead=(n["encoder_blocks"],), **kw)
+        params["enc_final_norm"] = layers.init_norm(cfg.norm, D, **kw)
+    if cfg.frontend_tokens > 0 or cfg.is_encdec:
+        params["frontend_proj"] = layers.dense_init(
+            gen, cfg.frontend_dim or D, D, **kw)
     return params
 
 
@@ -103,13 +180,32 @@ def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
 # block application (sequence form)
 # ---------------------------------------------------------------------------
 
-def _apply_attn_block(p, cfg: ModelConfig, x, positions, impl,
-                      mode="causal"):
+def _apply_attn_block_kv(p, cfg: ModelConfig, x, positions, impl, enc=None,
+                         mode="causal"):
+    """The block and its (roped) K/V; ``enc`` = (encoder output, its
+    positions) adds the cross-attention sub-block."""
     h = layers.apply_norm(cfg.norm, p["ln1"], x)
-    x = x + attention.attention(p["attn"], cfg, h, positions, mode=mode,
-                                impl=impl)
+    y, kv = attention.attention(p["attn"], cfg, h, positions, mode=mode,
+                                impl=impl, return_kv=True)
+    x = x + y
+    if enc is not None:
+        h = layers.apply_norm(cfg.norm, p["ln_x"], x)
+        x = x + attention.attention(
+            p["xattn"], cfg, h, positions, kv_src=enc[0],
+            kv_positions=enc[1], mode="full", rope=False, impl=impl)
     h = layers.apply_norm(cfg.norm, p["ln2"], x)
-    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h)
+    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), kv
+
+
+def _apply_moe_block_kv(p, cfg: ModelConfig, x, positions, impl):
+    """The block, its K/V and its aux loss."""
+    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    y, kv = attention.attention(p["attn"], cfg, h, positions, impl=impl,
+                                return_kv=True)
+    x = x + y
+    h = layers.apply_norm(cfg.norm, p["ln2"], x)
+    y, aux = moe.apply_moe(p["moe"], cfg, h)
+    return x + y, kv, aux
 
 
 def _apply_ssm_block(p, cfg: ModelConfig, x, impl):
@@ -121,27 +217,71 @@ def _apply_ssm_block(p, cfg: ModelConfig, x, impl):
     return x + y, st
 
 
+def _run_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
+               impl, enc=None):
+    """The decoder blocks over a full sequence, in the order of the JAX
+    package's scans. Returns (x, aux, kv, shared, states): the mean MoE aux
+    loss (0 without MoE), and what the blocks emit for the caches, block
+    by block: the primary attention stack's (k, v), the secondary stack's
+    (the hybrid's shared-block applications, the interleaved dense
+    layers), the SSM states."""
+    kv, shared, states, auxs = [], [], [], []
+    blocks = params["blocks"]
+    kind = cfg.arch_type
+    if kind in ("dense", "vlm", "audio"):
+        for i in range(cfg.num_layers):
+            x, kv_i = _apply_attn_block_kv(_layer(blocks, i), cfg, x,
+                                           positions, impl, enc)
+            kv.append(kv_i)
+    elif kind == "moe":
+        per = cfg.moe_every - 1
+        for g in range(stack_sizes(cfg)["blocks"]):
+            for j in range(per):
+                x, kv_i = _apply_attn_block_kv(
+                    _layer(params["dense_blocks"], g * per + j), cfg, x,
+                    positions, impl)
+                shared.append(kv_i)
+            x, kv_i, aux = _apply_moe_block_kv(_layer(blocks, g), cfg, x,
+                                               positions, impl)
+            kv.append(kv_i)
+            auxs.append(aux)
+    elif kind in ("ssm", "hybrid"):
+        for i in range(cfg.num_layers):
+            x, st = _apply_ssm_block(_layer(blocks, i), cfg, x, impl)
+            states.append(st)
+            if kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
+                x, kv_i = _apply_attn_block_kv(params["shared_attn"], cfg,
+                                               x, positions, impl)
+                shared.append(kv_i)
+    else:
+        raise ValueError(kind)
+    aux = (torch.stack(auxs).mean() if auxs
+           else torch.zeros((), device=x.device))
+    return x, aux, kv, shared, states
+
+
 def decoder_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
-                  impl: Optional[str] = None):
+                  impl: Optional[str] = None, enc_out=None,
+                  enc_positions=None):
     """The decoder blocks over a full sequence. Returns (x, aux); aux is
-    the MoE load-balance loss, 0 for the dense and SSM families."""
+    the mean MoE load-balance loss, 0 for the other families."""
     _check_ported(cfg)
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        if cfg.arch_type == "ssm":
-            x, _ = _apply_ssm_block(p, cfg, x, impl)
-        else:
-            x = _apply_attn_block(p, cfg, x, positions, impl)
-    return x, torch.zeros((), device=x.device)
+    enc = None if enc_out is None else (enc_out, enc_positions)
+    x, aux, _, _, _ = _run_stack(params, cfg, x, positions, impl, enc)
+    return x, aux
 
 
-def _apply_attn_block_kv(p, cfg: ModelConfig, x, positions, impl):
-    h = layers.apply_norm(cfg.norm, p["ln1"], x)
-    y, (k, v) = attention.attention(p["attn"], cfg, h, positions,
-                                    impl=impl, return_kv=True)
-    x = x + y
-    h = layers.apply_norm(cfg.norm, p["ln2"], x)
-    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), (k, v)
+def encoder_stack(params, cfg: ModelConfig, frames: Tensor,
+                  impl: Optional[str] = None) -> Tensor:
+    """Whisper-style bidirectional encoder over (stub) frame features
+    (B, T, frontend_dim) in the compute dtype: full-mode self-attention
+    with RoPE over positions 0..T-1, then the encoder's final norm."""
+    x = frames @ params["frontend_proj"].to(frames.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.encoder_layers):
+        x, _ = _apply_attn_block_kv(_layer(params["encoder_blocks"], i),
+                                    cfg, x, positions, impl, mode="full")
+    return layers.apply_norm(cfg.norm, params["enc_final_norm"], x)
 
 
 def _place_kv(ks: Tensor, W: int, S: int) -> Tensor:
@@ -157,21 +297,38 @@ def _place_kv(ks: Tensor, W: int, S: int) -> Tensor:
     return cache
 
 
+def _cross_kv(params, cfg: ModelConfig, enc_out: Tensor):
+    """Every decoder layer's cross-attention K/V (L, B, T, KV, hd) from the
+    encoder's output, without the projections' biases (as the JAX
+    package computes them)."""
+    B, T, _ = enc_out.shape
+    xattn = params["blocks"]["xattn"]
+    shape = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.hd)
+    return {f"cross_{n}": (enc_out @ xattn[f"w_{n}"].to(enc_out.dtype)[:, None]
+                           ).reshape(shape) for n in ("k", "v")}
+
+
 # ---------------------------------------------------------------------------
 # serving: caches, prefill, decode
 # ---------------------------------------------------------------------------
 
 class DecodeCaches(NamedTuple):
-    """Decode state: the attention stack's K/V (dense family) or the SSM
-    stack's conv windows and states (SSM family); the other pair is None.
-    ``decode_step`` updates them in place and returns the caches with
-    ``pos`` advanced. The JAX package's secondary and cross-attention
-    stacks belong to families this port does not run yet."""
-    k: Optional[Tensor]                # (L, B, W, KV, hd)
+    """Decode state, stacked over layers; a stack the family does not use
+    is None. ``decode_step`` updates the stacks in place and returns the
+    caches with ``pos`` advanced.
+
+    ``shared_k`` / ``shared_v`` hold the secondary attention stack: the
+    hybrid's parameter-shared block (one entry per application) or the
+    interleaved-MoE family's dense layers (Llama-4)."""
+    k: Optional[Tensor]                # (L, B, W, KV, hd) primary stack
     v: Optional[Tensor]
     pos: int                           # next absolute position
     ssm_conv: Optional[Tensor] = None  # (L, B, cw-1, d_in + 2N), KV dtype
     ssm_h: Optional[Tensor] = None     # (L, B, H, N, P) f32
+    shared_k: Optional[Tensor] = None  # (n2, B, W, KV, hd) secondary stack
+    shared_v: Optional[Tensor] = None
+    cross_k: Optional[Tensor] = None   # (L, B, T_enc, KV, hd) Whisper
+    cross_v: Optional[Tensor] = None
 
 
 def cache_window(cfg: ModelConfig, seq_len: int) -> int:
@@ -179,28 +336,73 @@ def cache_window(cfg: ModelConfig, seq_len: int) -> int:
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
-                device=None) -> DecodeCaches:
+                enc_seq: int = 0, device=None) -> DecodeCaches:
+    """Zero caches for ``batch`` rows of ``seq_len`` positions (and
+    ``enc_seq`` encoder frames for the encoder-decoder family)."""
     _check_ported(cfg)
     kw = dict(dtype=cfg.kv_torch_dtype, device=resolve_device(device))
-    if cfg.arch_type == "ssm":
-        st = ssm.init_ssm_state(cfg, batch, **kw)
-        n = cfg.num_layers
-        return DecodeCaches(
-            k=None, v=None, pos=0,
-            ssm_conv=st.conv.new_zeros((n,) + st.conv.shape),
-            ssm_h=st.h.new_zeros((n,) + st.h.shape))
+    kinds = cfg.layer_kinds()
+    if cfg.arch_type == "moe" and cfg.moe_every > 1:
+        n_attn = cfg.num_layers // cfg.moe_every           # moe layers
+        n_secondary = cfg.num_layers - n_attn              # dense layers
+    else:
+        n_attn = sum(1 for k in kinds if k in ("attn", "moe"))
+        n_secondary = 0
+    if cfg.arch_type == "hybrid":
+        n_secondary = cfg.num_layers // cfg.shared_attn_every
     W = cache_window(cfg, seq_len)
-    shape = (cfg.num_layers, batch, W, cfg.num_kv_heads, cfg.hd)
-    return DecodeCaches(torch.zeros(shape, **kw), torch.zeros(shape, **kw), 0)
+
+    def stack(n, rows=W):
+        if not n:
+            return None
+        return torch.zeros((n, batch, rows, cfg.num_kv_heads, cfg.hd), **kw)
+
+    conv = h = None
+    n_ssm = sum(1 for k in kinds if k == "ssm")
+    if n_ssm:
+        st = ssm.init_ssm_state(cfg, batch, **kw)
+        conv = st.conv.new_zeros((n_ssm,) + st.conv.shape)
+        h = st.h.new_zeros((n_ssm,) + st.h.shape)
+    n_cross = cfg.num_layers if cfg.is_encdec else 0
+    return DecodeCaches(
+        k=stack(n_attn), v=stack(n_attn), pos=0, ssm_conv=conv, ssm_h=h,
+        shared_k=stack(n_secondary), shared_v=stack(n_secondary),
+        cross_k=stack(n_cross, enc_seq), cross_v=stack(n_cross, enc_seq))
 
 
-def _decode_attn_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl):
+def _decode_attn_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl,
+                       cross_kv=None):
+    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    y, kc, vc = attention.decode_attention(p["attn"], cfg, h, kc, vc, pos,
+                                           impl=impl)
+    x = x + y
+    if cross_kv is not None:
+        h = layers.apply_norm(cfg.norm, p["ln_x"], x)
+        x = x + _cross_decode(p["xattn"], cfg, h, *cross_kv)
+    h = layers.apply_norm(cfg.norm, p["ln2"], x)
+    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), kc, vc
+
+
+def _cross_decode(p, cfg: ModelConfig, x, ck, cv):
+    """Cross-attention of one decode token against the precomputed
+    (B, T_enc, KV, hd) K/V: the einsum form, as in the JAX package (no
+    kernel; the encoder's 1,500 frames need not be tile-divisible)."""
+    B = x.shape[0]
+    dt = x.dtype
+    q = (x @ p["w_q"].to(dt)).reshape(B, 1, cfg.num_heads, cfg.hd)
+    valid = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
+    out = attention._einsum_decode(q, ck, cv, valid)
+    return out.reshape(B, 1, cfg.num_heads * cfg.hd) @ p["w_o"].to(dt)
+
+
+def _decode_moe_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl):
     h = layers.apply_norm(cfg.norm, p["ln1"], x)
     y, kc, vc = attention.decode_attention(p["attn"], cfg, h, kc, vc, pos,
                                            impl=impl)
     x = x + y
     h = layers.apply_norm(cfg.norm, p["ln2"], x)
-    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), kc, vc
+    y, _ = moe.apply_moe(p["moe"], cfg, h)
+    return x + y, kc, vc
 
 
 def _decode_ssm_block(p, cfg: ModelConfig, x, state: ssm.SSMState):
@@ -209,32 +411,96 @@ def _decode_ssm_block(p, cfg: ModelConfig, x, state: ssm.SSMState):
     return x + y, state
 
 
+def _decode_layers(params, cfg: ModelConfig, x: Tensor,
+                   caches: DecodeCaches, impl) -> Tensor:
+    """One token's activations (B, 1, D) through every block at position
+    ``caches.pos``, writing the caches in place; returns the last block's
+    output."""
+    pos = caches.pos
+    blocks = params["blocks"]
+    kind = cfg.arch_type
+    if kind in ("dense", "vlm", "audio"):
+        if cfg.is_encdec and caches.cross_k is None:
+            raise ValueError(f"{cfg.name}: the caches hold no cross-attention "
+                             "K/V; prefill with encoder_frames first")
+        for i in range(cfg.num_layers):
+            cross = ((caches.cross_k[i], caches.cross_v[i])
+                     if cfg.is_encdec else None)
+            x, _, _ = _decode_attn_block(_layer(blocks, i), cfg, x,
+                                         caches.k[i], caches.v[i], pos, impl,
+                                         cross)
+    elif kind == "moe":
+        per = cfg.moe_every - 1
+        for g in range(stack_sizes(cfg)["blocks"]):
+            for j in range(per):
+                d = g * per + j
+                x, _, _ = _decode_attn_block(
+                    _layer(params["dense_blocks"], d), cfg, x,
+                    caches.shared_k[d], caches.shared_v[d], pos, impl)
+            x, _, _ = _decode_moe_block(_layer(blocks, g), cfg, x,
+                                        caches.k[g], caches.v[g], pos, impl)
+    elif kind in ("ssm", "hybrid"):
+        for i in range(cfg.num_layers):
+            x, st = _decode_ssm_block(_layer(blocks, i), cfg, x, ssm.SSMState(
+                caches.ssm_conv[i], caches.ssm_h[i]))
+            caches.ssm_conv[i].copy_(st.conv)
+            caches.ssm_h[i].copy_(st.h)
+            if kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
+                a = i // cfg.shared_attn_every
+                x, _, _ = _decode_attn_block(
+                    params["shared_attn"], cfg, x, caches.shared_k[a],
+                    caches.shared_v[a], pos, impl)
+    else:
+        raise ValueError(kind)
+    return x
+
+
 def decode_step(params, cfg: ModelConfig, token: Tensor,
                 caches: DecodeCaches, impl: Optional[str] = None):
     """One serve step: token (B, 1) -> f32 logits (B, V), caches (updated
     in place, ``pos`` advanced)."""
     _check_ported(cfg)
-    x = _embed(params, cfg, token)                           # (B, 1, D)
-    for i in range(cfg.num_layers):
-        p = _layer(params["blocks"], i)
-        if cfg.arch_type == "ssm":
-            x, st = _decode_ssm_block(p, cfg, x, ssm.SSMState(
-                caches.ssm_conv[i], caches.ssm_h[i]))
-            caches.ssm_conv[i].copy_(st.conv)
-            caches.ssm_h[i].copy_(st.h)
-        else:
-            x, _, _ = _decode_attn_block(p, cfg, x, caches.k[i], caches.v[i],
-                                         caches.pos, impl)
+    x = _decode_layers(params, cfg, _embed(params, cfg, token), caches, impl)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x[:, 0]), caches._replace(pos=caches.pos + 1)
 
 
+def _decode_embedded(params, cfg: ModelConfig, x_emb: Tensor,
+                     caches: DecodeCaches, impl):
+    """``decode_step`` fed with an embedding (B, 1, D) instead of a token
+    id: the VLM's patch embeddings in the oracle prefill. Returns (None,
+    caches with ``pos`` advanced), as the JAX package does."""
+    if cfg.arch_type not in ("dense", "vlm", "audio") or cfg.is_encdec:
+        raise NotImplementedError(
+            "embedded prefill only used for decoder-only VLM")
+    _decode_layers(params, cfg, x_emb, caches, impl)
+    return None, caches._replace(pos=caches.pos + 1)
+
+
 def prefill(params, cfg: ModelConfig, tokens: Tensor, *,
+            frontend: Optional[Tensor] = None,
+            encoder_frames: Optional[Tensor] = None,
             cache_len: Optional[int] = None, impl: Optional[str] = None):
     """The prompt through ``decode_step`` token by token (the oracle of
-    ``prefill_forward``). Returns (logits of the last position, caches)."""
+    ``prefill_forward``), after the encoder's cross K/V (encoder-decoder)
+    or the frontend embeddings fed as pseudo-tokens (VLM). As in the JAX
+    package, the caches hold ``cache_len`` or S positions, S the text's
+    length. Returns (logits of the last position, caches)."""
     B, S = tokens.shape
-    caches = init_caches(cfg, B, cache_len or S, device=tokens.device)
+    if cfg.is_encdec:
+        _need_frames(cfg, encoder_frames)
+    enc_seq = 0 if encoder_frames is None else encoder_frames.shape[1]
+    caches = init_caches(cfg, B, cache_len or S, enc_seq=enc_seq,
+                         device=tokens.device)
+    dt = cfg.torch_dtype
+    if cfg.is_encdec:
+        enc_out = encoder_stack(params, cfg, encoder_frames.to(dt), impl)
+        caches = caches._replace(**_cross_kv(params, cfg, enc_out))
+    if frontend is not None:
+        fe = frontend.to(dt) @ params["frontend_proj"].to(dt)
+        for i in range(fe.shape[1]):
+            _, caches = _decode_embedded(params, cfg, fe[:, i:i + 1], caches,
+                                         impl)
     logits = None
     for i in range(S):
         logits, caches = decode_step(params, cfg, tokens[:, i:i + 1], caches,
@@ -243,34 +509,44 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, *,
 
 
 def prefill_forward(params, cfg: ModelConfig, tokens: Tensor, *,
+                    frontend: Optional[Tensor] = None,
+                    encoder_frames: Optional[Tensor] = None,
                     cache_len: Optional[int] = None,
                     impl: Optional[str] = None):
     """Batched prefill: one full-sequence pass that emits the decode
-    caches (roped per-layer K/V in ring-buffer layout, or the SSM stack's
-    conv windows and states) and the last token's f32 logits (B, V)."""
+    caches (roped per-layer K/V in ring-buffer layout, SSM conv windows
+    and states, the secondary stack, the cross K/V) and the last token's
+    f32 logits (B, V). ``frontend`` (B, F, frontend_dim) is put before the
+    text (VLM); ``encoder_frames`` (B, T, frontend_dim) feed the encoder
+    (encoder-decoder, which raises ValueError without them)."""
     _check_ported(cfg)
     x = _embed(params, cfg, tokens)
+    dt = x.dtype
+    enc = None
+    if cfg.is_encdec:
+        _need_frames(cfg, encoder_frames)
+        enc_out = encoder_stack(params, cfg, encoder_frames.to(dt), impl)
+        enc = (enc_out, torch.arange(enc_out.shape[1], device=x.device))
+    elif frontend is not None:
+        fe = frontend.to(dt) @ params["frontend_proj"].to(dt)
+        x = torch.cat([fe, x], dim=1)                      # early fusion
     S = x.shape[1]
-    if cfg.arch_type == "ssm":
-        convs, hs = [], []
-        for i in range(cfg.num_layers):
-            x, st = _apply_ssm_block(_layer(params["blocks"], i), cfg, x,
-                                     impl)
-            convs.append(st.conv)
-            hs.append(st.h)
-        caches = DecodeCaches(k=None, v=None, pos=S,
-                              ssm_conv=torch.stack(convs),
-                              ssm_h=torch.stack(hs))
-    else:
-        positions = torch.arange(S, device=x.device)
-        W = cache_window(cfg, cache_len or S)
-        ks, vs = [], []
-        for i in range(cfg.num_layers):
-            x, (k, v) = _apply_attn_block_kv(_layer(params["blocks"], i),
-                                             cfg, x, positions, impl)
-            ks.append(k)
-            vs.append(v)
-        caches = DecodeCaches(k=_place_kv(torch.stack(ks), W, S),
-                              v=_place_kv(torch.stack(vs), W, S), pos=S)
+    positions = torch.arange(S, device=x.device)
+    W = cache_window(cfg, cache_len or S)
+    x, _, kv, shared, states = _run_stack(params, cfg, x, positions, impl,
+                                          enc)
+
+    def place(pairs, i):
+        if not pairs:
+            return None
+        return _place_kv(torch.stack([p[i] for p in pairs]), W, S)
+
+    caches = DecodeCaches(
+        k=place(kv, 0), v=place(kv, 1), pos=S,
+        ssm_conv=torch.stack([s.conv for s in states]) if states else None,
+        ssm_h=torch.stack([s.h for s in states]) if states else None,
+        shared_k=place(shared, 0), shared_v=place(shared, 1))
+    if enc is not None:
+        caches = caches._replace(**_cross_kv(params, cfg, enc[0]))
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x[:, -1]), caches

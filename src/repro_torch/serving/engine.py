@@ -1,14 +1,15 @@
 """PortfolioServer: ParetoBandit routing in front of really served models.
 
-A portfolio of served models (the dense and SSM architectures of
-``repro_torch.configs``), the feature pipeline (hash encoder + PCA),
+A portfolio of served models (any architecture of ``repro_torch.configs``
+but the encoder-decoder one, whose prefill needs frames that
+``generate`` does not pass), the feature pipeline (hash encoder + PCA),
 Algorithm 1 arm selection, decoding on the chosen model, and closed-loop
 bandit/pacer updates from the observed (reward, cost).
 
 On the card, generation runs the models' attention through the CUDA
 kernels (``flash_attention`` in prefill, ``decode_attention`` per token),
-the SSM models' prefill scan through ``ssd_scan``, and routing through
-``linucb_score``; on the CPU every kernel wrapper runs its plain
+the SSM and hybrid models' prefill scan through ``ssd_scan``, and routing
+through ``linucb_score``; on the CPU every kernel wrapper runs its plain
 version.
 
 ``serve_batch`` is the batched data plane: the block is routed through

@@ -651,3 +651,120 @@ def test_portfolio_serves_on_card(dev):
         got, _ = prefill_forward(m.params, m.cfg, toks, impl="cuda")
         want, _ = prefill_forward(m.params, m.cfg, toks, impl="chunked")
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the model zoo: its kernel shapes, MoE, a model of each family
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,H,KV,hd,mode", [
+    (1, 32, 32, 32, 32, 80, "causal"),     # zamba2's shared block
+    (1, 608, 608, 32, 32, 96, "causal"),   # phi-3-vision: 576 patches + 32
+    (1, 1500, 1500, 16, 16, 64, "full"),   # whisper's encoder: ragged tile
+    (1, 32, 1500, 16, 16, 64, "full"),     # whisper's cross-attention
+    (2, 40, 100, 8, 2, 48, "full")])       # cross-attention with GQA
+def test_flash_kernel_zoo_shapes(dev, dtype, B, S, T, H, KV, hd, mode):
+    """The zoo's prefill shapes, S != T among them, on the route
+    ``kernel.route`` names, against the plain version."""
+    from repro_torch.kernels.flash_attention import ops as fa_ops
+    from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+
+    g = torch.Generator(device=dev).manual_seed(S + T + hd)
+    q, k, v = (torch.randn(s, generator=g, device=dev, dtype=dtype)
+               for s in ((B, S, H, hd), (B, T, KV, hd), (B, T, KV, hd)))
+    which = route(dtype, hd)
+    n = fa_ops.ROUTE_LAUNCHES[which]
+    got = fa_ops.flash_attention(q, k, v, mode=mode)
+    assert fa_ops.ROUTE_LAUNCHES[which] == n + 1
+    assert_attn_close(got, flash_attention_ref(q, k, v, mode=mode), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,W,H,KV,hd,pos", [
+    (1, 40, 32, 32, 80, 39), (1, 616, 32, 32, 96, 615),
+    (1, 40, 16, 16, 64, 39),
+    (1, 40, 48, 8, 128, 39), (1, 40, 40, 8, 128, 39)])   # G = 6, G = 5
+def test_decode_kernel_zoo_shapes(dev, dtype, B, W, H, KV, hd, pos):
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.attention import ring_valid
+
+    g = torch.Generator(device=dev).manual_seed(W + H + hd)
+    q, kc, vc = (torch.randn(s, generator=g, device=dev, dtype=dtype)
+                 for s in ((B, 1, H, hd), (B, W, KV, hd), (B, W, KV, hd)))
+    valid = ring_valid(pos, W, 0, dev)
+    assert_attn_close(da_ops.decode_attention(q, kc, vc, valid),
+                      decode_attention_ref(q, kc, vc, valid), dtype)
+
+
+def test_ssd_kernel_zamba2_shape(dev):
+    """zamba2-2.7b's served scan: H 80, P 64, N 64, one 32-row chunk, x /
+    B / C views of its 5,248-wide projection: the one-chunk tensor-core
+    route."""
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_scan_ref
+
+    args = _ssd_inputs(dev, 1, 32, 80, 64, 64, BF16)
+    n = ssd_ops.ROUTE_LAUNCHES["one_chunk"]
+    got = ssd_ops.ssd_scan(*args, chunk=128)
+    assert ssd_ops.ROUTE_LAUNCHES["one_chunk"] == n + 1
+    _assert_ssd_close(got, ssd_scan_ref(*args, chunk=32), BF16)
+
+
+@pytest.mark.parametrize("cf,G", [(8.0, 1), (0.1, 1), (0.1, 4)])
+def test_apply_moe_on_card_matches_cpu(dev, cf, G):
+    """The MoE layer on the card (f32, TF32 off) against the CPU's: the
+    same experts, kept and dropped copies, so outputs within 1e-4."""
+    from repro_torch.models import moe
+    from repro_torch.models.config import ModelConfig
+
+    cfg = ModelConfig(name="tiny-moe", arch_type="moe", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=64, num_experts=8, experts_per_token=2,
+                      capacity_factor=cf, moe_dispatch_groups=G,
+                      dtype="float32")
+    p = moe.init_moe(torch.Generator().manual_seed(0), cfg, device="cpu")
+    x = torch.randn((2, 48, 64), generator=torch.Generator().manual_seed(1))
+    want, want_aux = moe.apply_moe(p, cfg, x)
+    got, aux = moe.apply_moe({k: v.to(dev) for k, v in p.items()}, cfg,
+                             x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "dbrx-132b",
+                                  "llama4-maverick-400b-a17b",
+                                  "phi-3-vision-4.2b", "whisper-medium"])
+def test_zoo_model_on_card_matches_cpu(dev, arch):
+    """Each new family's SMOKE model (f32) on the card through the kernels
+    against the same weights on the CPU's plain route: prefill logits
+    (with the VLM's image, the whisper encoder's frames) and 3 decode
+    steps, within 1e-4."""
+    from repro_torch import configs
+    from repro_torch.models import decode_step, init_model, prefill_forward
+
+    cfg = configs.get_smoke(arch)
+    p = init_model(cfg, seed=0, device="cpu")
+    pc = torch.utils._pytree.tree_map(lambda t: t.to(dev), p)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(2, cfg.vocab_size, (1, 32), generator=g)
+    extra = {}
+    if cfg.frontend_tokens:
+        extra["frontend"] = torch.randn(
+            (1, cfg.frontend_tokens, cfg.frontend_dim), generator=g)
+    if cfg.is_encdec:
+        extra["encoder_frames"] = torch.randn(
+            (1, cfg.encoder_seq, cfg.frontend_dim), generator=g)
+    runs = []
+    for d, params in (("cpu", p), (dev, pc)):
+        logits, c = prefill_forward(params, cfg, toks.to(d), cache_len=64,
+                                    **{k: v.to(d) for k, v in extra.items()})
+        out = [logits.cpu()]
+        for t in (5, 9, 11):
+            logits, c = decode_step(params, cfg,
+                                    torch.full((1, 1), t, device=d), c)
+            out.append(logits.cpu())
+        runs.append(torch.stack(out))
+    torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)

@@ -142,7 +142,9 @@ def jax_models():
 
 
 def _carry(jm: JModel) -> ServedModel:
-    cfg = configs.get_smoke(jm.cfg.name.removesuffix("-smoke"))
+    arch = next(a for a in configs.ARCH_IDS
+                if configs.get_smoke(a).name == jm.cfg.name)
+    cfg = configs.get_smoke(arch)
     assert dataclasses.asdict(cfg) == dataclasses.asdict(jm.cfg)
     params = interop.params_from_numpy(
         jax.tree.map(np.asarray, jm.params), cfg, "cpu")
@@ -189,6 +191,22 @@ def test_portfolio_server_matches_jax(jax_models):
     ``launch/serve.py`` drives the gateway), then the control plane:
     duplicate feedback, a hyper-parameter retune, a budget change and a
     removed arm, then one more window."""
+    _serve_against_jax(jax_models)
+
+
+ZOO_ARCHS = ("zamba2-2.7b", "dbrx-132b", "llama4-maverick-400b-a17b")
+
+
+def test_zoo_portfolio_server_matches_jax():
+    """The same run with a hybrid, an MoE and an interleaved-MoE arm
+    (SMOKE, seeds 0..2): every generated token equal to JAX's."""
+    _serve_against_jax([
+        JModel.init(jconfigs.get_smoke(a), JPricing(TIERS[i], PRICES[i],
+                                                    20.0), TIERS[i], seed=i)
+        for i, a in enumerate(ZOO_ARCHS)])
+
+
+def _serve_against_jax(jax_models):
     corpus = [r["prompt"] for r in jstream(120, seed=9)]
     jw = fit_pca_whitener(hash_encode_batch(corpus))
     w = PCAWhitener(*(torch.as_tensor(np.array(getattr(jw, n)))
@@ -329,3 +347,21 @@ def test_serve_driver_on_cpu(capsys, tmp_path):
     assert "decisions_total 8" in out.replace("paretobandit_", "")
     with pytest.raises(NotImplementedError):
         serve.main(["--dry-run"])
+
+
+def test_serve_driver_serves_the_zoo_on_cpu(capsys):
+    """``--arch`` takes the hybrid, MoE and VLM ids; whisper-medium's
+    prefill needs frames that ``generate`` does not pass, and says so."""
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--requests", "8", "--window", "4",
+                "--arch", "zamba2-2.7b", "--arch", "phi-3-vision-4.2b",
+                "--arch", "llama4-maverick-400b-a17b"])
+    out = capsys.readouterr().out
+    assert "served 8 requests" in out
+    assert "arm 0: zamba2-2.7b" in out and "arm 2: llama4" in out
+    cfg = configs.get_smoke("whisper-medium")
+    whisper = ServedModel.init(cfg, ArmPricing("w", 1e-3, 20.0), "mid",
+                               device="cpu")
+    with pytest.raises(ValueError, match="encoder_frames"):
+        whisper.generate(np.arange(2, 10, dtype=np.int32), 2)
