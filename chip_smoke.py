@@ -142,7 +142,18 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      bar; bf16 to 2x the plain routes' difference, except the MoE arms,
      whose bf16 ratio is printed beside the count of (token, layer)
      top-k choices that differ between the routes), its trace as in
-     phase 9, and each sub-phase's wall and peak memory.
+     phase 9, and each sub-phase's wall and peak memory;
+ 14. trains (forward_train, make_train_step, AdamW, launch.train) on the
+     chunked route, as the JAX package's train step does: (a) a SMOKE
+     config of each family (dense, ssm, hybrid, MoE with moe_every 1 and
+     2, VLM with its frontend, whisper with its frames) in f32 on the
+     card against the CPU, two steps; (b) olmo-1b FULL in bf16 on one
+     fixed batch of 8 x 128 tokens, 10 steps whose loss must fall by 1
+     nat, every gradient leaf finite and nonzero; (c) its first step with
+     per-layer remat; (d) mamba2-370m FULL in bf16, 5 steps; (e)
+     launch.train.main at SMOKE with a checkpoint loaded back. The five
+     kernels' counters are zeroed before the phase and must read 0 after
+     it (see train_phase for the bars and what is printed).
 
 Prints the script's wall, the kernels JSON line, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -1991,6 +2002,240 @@ def zoo_phase(stream):
     return total
 
 
+# Phase 14's configs: (a) one SMOKE config of each family, card against
+# CPU; (b)-(c) olmo-1b FULL in bf16 at launch/train.py's batch (8 x 128);
+# (d) mamba2-370m FULL in bf16. The 10-step bar on one fixed batch: the
+# loss must fall by TRAIN_DROP nats.
+TRAIN_FAMILIES = (("dense", "olmo-1b"), ("ssm", "mamba2-370m"),
+                  ("hybrid", "zamba2-2.7b"), ("moe", "dbrx-132b"),
+                  ("moe-every2", "llama4-maverick-400b-a17b"),
+                  ("vlm", "phi-3-vision-4.2b"), ("audio", "whisper-medium"))
+TRAIN_BATCH, TRAIN_SEQ = 8, 128
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 10
+TRAIN_DROP = 1.0
+# bf16 on the tensor cores (989 TFLOP/s) is the MFU's yardstick.
+TRAIN_PEAK = BF16_FLOP_PER_S
+
+
+def train_phase():
+    """Phase 14: the training path on the card. (a) Each family's SMOKE
+    config in f32 (TF32 off) on the card against the same weights and
+    batch on the CPU: step 1's loss within 1e-4 relative, each gradient
+    leaf's max |diff| within 1e-3 of its max |g|, step 2's loss within
+    1e-4 relative; (b) olmo-1b FULL in bf16, remat off, on one fixed
+    SyntheticLMDataset batch (8 x 128): every gradient leaf finite and
+    nonzero after step 1, the loss down by TRAIN_DROP nats over 10 steps;
+    (c) the same first step with per-layer remat: loss within 1e-2
+    relative, each gradient leaf within 5e-2 of (b)'s max |g|; (d)
+    mamba2-370m FULL in bf16, 5 steps on the stream, every loss finite;
+    (e) launch.train.main at SMOKE on the card with --ckpt, loaded back
+    into a template, every leaf equal. Prints host ms per step (least of
+    5 synchronised steps), tokens/s, peak memory with and without remat,
+    model FLOP/s (6 N tokens / step time) and its share of the bf16
+    peak, and where olmo-1b's step goes: loss + gradients, the AdamW
+    update, one step's device busy time and idle share."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch import configs, tree
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import forward_train, init_model
+    from repro_torch.optim import adamw_update
+    from repro_torch.training import (load_checkpoint, make_train_step,
+                                      train_state_init)
+
+    def grads_of(params, cfg, batch, remat=False):
+        """forward_train's loss and every gradient leaf, the params
+        untouched (the train step's own autograd)."""
+        p = tree.map_tree(lambda t: t.detach().requires_grad_(), params)
+        loss, _ = forward_train(p, cfg, batch, remat=remat)
+        return loss.detach(), torch.autograd.grad(
+            loss, list(tree.leaves(p)), materialize_grads=True)
+
+    def on(batch, device):
+        return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+    def sync_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) SMOKE parity, card against CPU.
+    missed = []
+    for family, arch in TRAIN_FAMILIES:
+        cfg = configs.get_smoke(arch)
+        rng = np.random.default_rng(14)
+        batch = next(iter(SyntheticLMDataset(vocab_size=cfg.vocab_size,
+                                             seq_len=32, batch_size=2)))
+        if cfg.frontend_tokens:
+            batch["frontend"] = rng.standard_normal(
+                (2, cfg.frontend_tokens, cfg.frontend_dim)).astype(np.float32)
+        if cfg.is_encdec:
+            batch["encoder_frames"] = rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.frontend_dim)).astype(np.float32)
+        p_cpu = init_model(cfg, seed=0, device="cpu")
+        runs = {}
+        for dev in ("cpu", "cuda"):
+            params = tree.map_tree(lambda t: t.to(dev), p_cpu)
+            b = on(batch, dev)
+            _, grads = grads_of(params, cfg, b)
+            step = make_train_step(cfg, peak_lr=1e-2, warmup_steps=1,
+                                   total_steps=10, remat=False)
+            state, m1 = step(train_state_init(params), b)
+            _, m2 = step(state, b)
+            runs[dev] = ([g.cpu() for g in grads], float(m1["loss"]),
+                         float(m2["loss"]))
+        (g0, l0, b0), (g1, l1, b1) = runs["cpu"], runs["cuda"]
+        rel1 = abs(l1 - l0) / abs(l0)
+        rel2 = abs(b1 - b0) / abs(b0)
+        worst = max(float((x - y).abs().max()) / max(float(y.abs().max()),
+                                                     1e-30)
+                    for x, y in zip(g1, g0))
+        print(f"[train] (a) {family} {cfg.name}: step-1 loss card "
+              f"{l1:.6f} cpu {l0:.6f} (rel {rel1:.2e}, bar 1e-4); "
+              f"{len(g0)} gradient leaves, worst max|diff| / max|g| "
+              f"{worst:.2e} (bar 1e-3); step-2 loss card {b1:.6f} cpu "
+              f"{b0:.6f} (rel {rel2:.2e}, bar 1e-4)")
+        if not (rel1 <= 1e-4 and worst <= 1e-3 and rel2 <= 1e-4):
+            missed.append(family)
+    assert not missed, f"card and CPU training disagree: {missed}"
+
+    # (b) olmo-1b FULL in bf16, remat off, one fixed batch.
+    cfg = configs.get_config("olmo-1b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    batch = on(next(iter(SyntheticLMDataset(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+        batch_size=TRAIN_BATCH))), "cuda")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    (loss_b, grads_b), _ = sync_s(lambda: grads_of(params, cfg, batch))
+    bad = [i for i, g in enumerate(grads_b)
+           if not (bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0)]
+    print(f"[train] (b) {cfg.name} FULL bf16: {n_params:,} parameters, "
+          f"step-1 loss {float(loss_b):.4f}; {len(grads_b)} gradient leaves, "
+          f"{len(bad)} not finite or all zero; max|g| per leaf "
+          f"{[float(g.abs().max()) for g in grads_b]}")
+    assert not bad, f"gradient leaves not finite or zero: {bad}"
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=1,
+                           total_steps=TRAIN_STEPS, remat=False)
+    state = train_state_init(params)
+    torch.cuda.reset_peak_memory_stats()
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        (state, m), s = sync_s(lambda: step(state, batch))
+        losses.append(float(m["loss"]))
+        secs.append(s)
+    peak_plain = torch.cuda.max_memory_allocated()
+    step_s = min(secs[-5:])
+    print(f"[train] (b) {TRAIN_STEPS} steps on one batch, peak lr "
+          f"{TRAIN_LR}: losses {[round(x, 4) for x in losses]}; drop "
+          f"{losses[0] - losses[-1]:.4f} nats (bar {TRAIN_DROP}); host ms "
+          f"per step {step_s * 1e3:.3f} (least of the last 5), "
+          f"{tokens / step_s:.1f} tokens/s, model FLOP/s (6 N tokens / "
+          f"step) {6 * n_params * tokens / step_s:.4e} = "
+          f"{6 * n_params * tokens / step_s / TRAIN_PEAK:.4f} of the bf16 "
+          f"peak; peak memory {peak_plain / 1e9:.2f} GB allocated")
+    assert all(np.isfinite(losses))
+    assert losses[0] - losses[-1] >= TRAIN_DROP, losses
+    # Where a step's time goes: loss + gradients, the AdamW update, and
+    # one profiled step's device busy time.
+    grads = tree.unflatten(state.params, grads_b)
+    lr = torch.tensor(TRAIN_LR, device="cuda")
+    fb_ms, adam_ms = host_ms([
+        lambda: grads_of(state.params, cfg, batch),
+        lambda: adamw_update(state.params, grads, state.opt, lr)], reps=2)
+    busy_ms, n_kernels, _ = device_profile(lambda: step(state, batch))
+    print(f"[train] (b) trace: loss + gradients {fb_ms:.3f} ms, AdamW "
+          f"update {adam_ms:.3f} ms host clock; one step's device busy "
+          f"{busy_ms:.3f} ms in {n_kernels} kernels (idle share "
+          f"{1 - busy_ms / (step_s * 1e3):.4f} of the step's "
+          f"{step_s * 1e3:.3f} ms)")
+    del state, m, grads
+
+    # (c) the first step again with per-layer remat: each route's peak
+    # memory above the weights and (b)'s gradients, then their times.
+    torch.cuda.empty_cache()
+    peaks = []
+    for remat in (True, False):
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = grads_of(params, cfg, batch, remat=remat)
+        peaks.append(torch.cuda.max_memory_allocated() - base)
+        if remat:
+            loss_c, grads_c = out
+        del out
+    peak_remat, peak_no_remat = peaks
+    s_c, s_b = (t / 1e3 for t in host_ms([
+        lambda: grads_of(params, cfg, batch, remat=True),
+        lambda: grads_of(params, cfg, batch)], reps=2))
+    rel = abs(float(loss_c) - float(loss_b)) / abs(float(loss_b))
+    worst = max(float((c - b).abs().max()) / float(b.abs().max())
+                for c, b in zip(grads_c, grads_b))
+    print(f"[train] (c) remat: step-1 loss {float(loss_c):.4f} (rel "
+          f"{rel:.2e}, bar 1e-2); worst gradient leaf max|diff| / max|g| "
+          f"{worst:.2e} (bar 5e-2); loss + gradients {s_c * 1e3:.3f} ms "
+          f"with remat, {s_b * 1e3:.3f} without; peak memory above the "
+          f"weights and kept gradients {peak_remat / 1e9:.2f} GB with "
+          f"remat, {peak_no_remat / 1e9:.2f} GB without")
+    assert rel <= 1e-2 and worst <= 5e-2
+    del params, grads_b, grads_c, batch
+    torch.cuda.empty_cache()
+
+    # (d) mamba2-370m FULL in bf16: 5 steps on the stream.
+    cfg = configs.get_config("mamba2-370m")
+    torch.cuda.reset_peak_memory_stats()
+    params = init_model(cfg, seed=0, device="cuda", dtype=torch.bfloat16)
+    n_params = sum(t.numel() for t in tree.leaves(params))
+    state = train_state_init(params)
+    step = make_train_step(cfg, peak_lr=TRAIN_LR, warmup_steps=1,
+                           total_steps=5, remat=False)
+    losses, secs = [], []
+    for _, b in zip(range(5), SyntheticLMDataset(
+            vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+            batch_size=TRAIN_BATCH)):
+        b = on(b, "cuda")
+        (state, m), s = sync_s(lambda: step(state, b))
+        losses.append(float(m["loss"]))
+        secs.append(s)
+    step_s = min(secs)
+    print(f"[train] (d) {cfg.name} FULL bf16: {n_params:,} parameters, 5 "
+          f"steps on the stream: losses {[round(x, 4) for x in losses]}; "
+          f"host ms per step {step_s * 1e3:.3f} (least of 5), "
+          f"{tokens / step_s:.1f} tokens/s, model FLOP/s "
+          f"{6 * n_params * tokens / step_s:.4e} = "
+          f"{6 * n_params * tokens / step_s / TRAIN_PEAK:.4f} of the bf16 "
+          f"peak; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated")
+    assert all(np.isfinite(losses)), losses
+    del params, state, m
+    torch.cuda.empty_cache()
+
+    # (e) launch.train.main at SMOKE on the card, its checkpoint loaded back.
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ckpt.npz")
+        final = launch_train.main(["--arch", "olmo-1b", "--steps", "3",
+                                   "--device", "cuda", "--ckpt", path])
+        back = load_checkpoint(path, train_state_init(
+            tree.map_tree(torch.zeros_like, final.params)))
+    pairs = list(zip(
+        tree.leaves({"p": back.params, "m": back.opt.mu, "v": back.opt.nu}),
+        tree.leaves({"p": final.params, "m": final.opt.mu,
+                     "v": final.opt.nu})))
+    same = all(torch.equal(a, b) for a, b in pairs)
+    print(f"[train] (e) launch.train.main olmo-1b SMOKE, 3 steps on cuda, "
+          f"--ckpt: {len(pairs)} leaves and the step "
+          f"{int(back.opt.step)} loaded back, all equal: {same}")
+    assert same and int(back.opt.step) == int(final.opt.step) == 3
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -2358,6 +2603,23 @@ def main() -> int:
     print(f"[zoo] phase wall {time.perf_counter() - t0:.1f} s; served-kernel "
           f"launches {zoo_launches}")
 
+    # Phase 14: the training path. The five kernels' counters are zeroed
+    # just before the phase and read just after: training runs the
+    # chunked route, as the JAX package's train step does, so every
+    # counter must read 0.
+    train_ops = {"linucb_score": score_ops, "linucb_step": step_ops,
+                 "flash_attention": flash_ops,
+                 "decode_attention": decode_ops, "ssd_scan": ssd_ops}
+    for mod in train_ops.values():
+        mod.LAUNCHES[0] = 0
+    t0 = time.perf_counter()
+    train_phase()
+    train_launches = {k: mod.LAUNCHES[0] for k, mod in train_ops.items()}
+    print(f"[train] phase wall {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {train_launches} (the reference's route: training "
+          f"runs no kernel)")
+    assert not any(train_launches.values()), train_launches
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -2395,6 +2657,8 @@ def main() -> int:
     kernels[1]["launches_sweep_by_route"] = sweep_routes
     for k in kernels[:2]:
         k["launches_tenants"] = tenant_launches[k["name"]]
+    for k in kernels:
+        k["launches_train"] = train_launches[k["name"]]
     kernels[2]["launches_by_route"] = flash_routes
     kernels[4]["launches_by_route"] = ssd_routes
     print(f"[wall] chip_smoke.py {time.perf_counter() - start:.1f} s, the "

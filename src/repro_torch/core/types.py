@@ -339,14 +339,24 @@ def state_concat(states: Sequence[RouterState], device=None) -> RouterState:
 
 @dataclasses.dataclass(frozen=True)
 class ArmPrior:
-    """Offline sufficient statistics for warm start (§3.4)."""
+    """Offline sufficient statistics for warm start (§3.4): one (d, d) /
+    (d,) pair, or a stack of them, (..., d, d) / (..., d)."""
 
-    A_off: Tensor   # (d, d)
-    b_off: Tensor   # (d,)
+    A_off: Tensor   # (d, d) or (..., d, d)
+    b_off: Tensor   # (d,) or (..., d)
 
     @property
     def theta_off(self) -> Tensor:
-        return torch.linalg.solve(self.A_off, self.b_off)
+        """A_off^-1 b_off. A per-state stack is solved one distinct system
+        at a time (``warmup.ridge_solve``), so a state's bits do not depend
+        on the stack it sits in."""
+        if self.A_off.dim() == 2:
+            return torch.linalg.solve(self.A_off, self.b_off)
+        from repro_torch.core.warmup import ridge_solve  # warmup imports us
+        d = self.b_off.shape[-1]
+        theta = ridge_solve(self.A_off.reshape(-1, d, d),
+                            self.b_off.reshape(-1, d))[1]
+        return theta.reshape(self.b_off.shape)
 
 
 def log_normalized_cost(price_per_1k: Tensor, hp: HyperParams) -> Tensor:

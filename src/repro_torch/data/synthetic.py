@@ -1,13 +1,55 @@
-"""Request streams for serving experiments: text prompts tagged with a
-task family, from a seed, and tenant-id overlays for the tenant plane
-(DESIGN.md §15). The JAX package's LM dataset belongs to the training
-slice, not ported yet.
+"""Data sources: synthetic token streams for LM training, request
+streams for serving experiments, and tenant-id overlays for the tenant
+plane (DESIGN.md §15).
+
+The LM dataset is the JAX package's deterministic Zipf-ish Markov token
+source with sequence packing, copied in numpy, so one seed gives the
+same batches bit for bit in both packages.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import dataclasses
+from typing import Dict, Iterator, List, Sequence
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SyntheticLMDataset:
+    """Packed next-token-prediction batches from a Markov chain."""
+
+    vocab_size: int
+    seq_len: int
+    batch_size: int
+    seed: int = 0
+    branching: int = 16   # successors per state -> learnable structure
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        # sparse successor table with Zipf-weighted choices
+        self._succ = rng.integers(
+            0, self.vocab_size, size=(self.vocab_size, self.branching)
+        )
+        w = 1.0 / np.arange(1, self.branching + 1) ** 1.2
+        self._probs = w / w.sum()
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        rng = np.random.default_rng(self.seed + 1)
+        state = rng.integers(0, self.vocab_size, size=(self.batch_size,))
+        while True:
+            toks = np.empty((self.batch_size, self.seq_len + 1), np.int32)
+            toks[:, 0] = state
+            for t in range(1, self.seq_len + 1):
+                choice = rng.choice(self.branching, size=self.batch_size,
+                                    p=self._probs)
+                toks[:, t] = self._succ[toks[:, t - 1], choice]
+            state = toks[:, -1]
+            yield {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+# ---------------------------------------------------------------------------
+# serving request streams
+# ---------------------------------------------------------------------------
 
 _TEMPLATES = {
     "math": "solve the equation {a} x plus {b} equals {c} step by step",

@@ -1,5 +1,5 @@
-"""Carry states, priors, environments, model parameters and decode caches
-between the two packages.
+"""Carry states, priors, environments, model parameters, training states
+and decode caches between the two packages.
 
 The JAX package's objects reach this module as numpy leaves: a mapping of
 field names to arrays, or any object with those attributes (such as a
@@ -27,6 +27,9 @@ from repro_torch.core.types import (
 )
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import DecodeCaches, stack_sizes
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.training.train_step import TrainState
+from repro_torch.tree import leaves
 
 _F32 = ("A", "A_inv", "b", "theta", "price", "c_tilde")
 _I32 = ("last_upd", "last_play", "t", "force_arm", "force_left")
@@ -153,7 +156,7 @@ def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
     out = {k: params_from_numpy(v, cfg, device) for k, v in tree.items()}
     if "embed" in out:                  # the top of a model tree
         for name, n in stack_sizes(cfg).items():
-            L = next(iter(_leaves(out[name]))).shape[0] if name in out else 0
+            L = next(leaves(out[name])).shape[0] if name in out else 0
             if L != n:
                 raise ValueError(f"{cfg.name}: {name} has {L} stacked "
                                  f"layers, config {n}")
@@ -164,19 +167,34 @@ def params_from_numpy(tree, cfg: ModelConfig, device) -> dict:
     return out
 
 
-def _leaves(tree):
-    for v in tree.values():
-        if isinstance(v, Mapping):
-            yield from _leaves(v)
-        else:
-            yield v
-
-
 def params_to_numpy(params) -> dict:
     """The port's parameters as a nested dict of f32 numpy arrays."""
     if not isinstance(params, Mapping):
         return params.detach().float().cpu().numpy()
     return {k: params_to_numpy(v) for k, v in params.items()}
+
+
+def train_state_from_numpy(state, cfg: ModelConfig, device) -> TrainState:
+    """The port's ``TrainState`` from a JAX ``TrainState`` (or a mapping
+    of its fields): the parameters and the f32 moments as
+    ``params_from_numpy`` reads them, the step as a 0-d int32 tensor."""
+    opt = _get(state, "opt")
+    return TrainState(
+        params=params_from_numpy(_get(state, "params"), cfg, device),
+        opt=AdamWState(
+            step=torch.as_tensor(np.array(_get(opt, "step")),
+                                 dtype=torch.int32, device=device),
+            mu=params_from_numpy(_get(opt, "mu"), cfg, device),
+            nu=params_from_numpy(_get(opt, "nu"), cfg, device)))
+
+
+def train_state_to_numpy(state: TrainState) -> dict:
+    """The port's ``TrainState`` as nested numpy leaves in the JAX
+    package's structure: params, opt/step (int32), opt/mu, opt/nu."""
+    return {"params": params_to_numpy(state.params),
+            "opt": {"step": np.int32(state.opt.step.item()),
+                    "mu": params_to_numpy(state.opt.mu),
+                    "nu": params_to_numpy(state.opt.nu)}}
 
 
 _CACHE_FIELDS = ("k", "v", "ssm_conv", "ssm_h", "shared_k", "shared_v",

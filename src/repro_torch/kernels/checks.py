@@ -7,7 +7,8 @@ import torch
 MAX_D = 128
 MAX_K = 64
 # The LinUCB kernels put the state axis on gridDim.y (linucb_step.cu) or
-# gridDim.z (linucb_common.cuh), which CUDA caps at 65,535 blocks.
+# gridDim.z (linucb_common.cuh), which CUDA caps at 65,535 blocks: their
+# wrappers launch a larger stack in slices of at most this many states.
 MAX_STATES = 65535
 # Compile-time limits of csrc/attention_common.cuh (kMaxHd) and
 # csrc/decode_attention.cu (kMaxG, kMaxOut), and the attention kernels'
@@ -39,18 +40,21 @@ def cuda_operands(name: str, skd: tuple, **operands) -> None:
     """Raise unless every operand is a contiguous CUDA tensor on one
     device with the given shape and dtype (default f32), and (K, d) are
     within the kernels' limits. ``operands`` maps a name to
-    (tensor, shape) or (tensor, shape, dtype)."""
-    S, K, d = skd
+    (tensor, shape) or (tensor, shape, dtype). Any number of states S
+    passes (``state_slices``)."""
+    _, K, d = skd
     if not (1 <= d <= MAX_D and 1 <= K <= MAX_K):
         raise ValueError(f"{name}: kernel takes 1 <= d <= {MAX_D} and "
                          f"1 <= K <= {MAX_K}; got d={d}, K={K}")
-    if S > MAX_STATES:
-        raise ValueError(
-            f"{name}: kernel takes at most {MAX_STATES} states (its grid's "
-            f"state axis); got S={S}. Run the stack in sub-stacks, e.g. "
-            f"sweep.run_grid(..., chunk_size=sweep.fit_chunk(S, "
-            f"{MAX_STATES}))")
     _check(name, torch.float32, operands)
+
+
+def state_slices(S: int) -> list:
+    """The (start, stop) ranges of a LinUCB launch over S states: one
+    launch per slice of at most ``MAX_STATES`` states, in order. Each
+    (arm, state) has its own block, so the slices compute what one
+    launch over the whole stack would."""
+    return [(a, min(a + MAX_STATES, S)) for a in range(0, S, MAX_STATES)]
 
 
 def attention_operands(name: str, hd: int, H: int, KV: int,

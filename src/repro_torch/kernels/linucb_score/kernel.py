@@ -29,15 +29,26 @@ def score_plan(S: int, R: int, K: int, d: int) -> dict:
                 smem_bytes=4 * (TILE_ROWS * (dp + 4) + dp * dp + dp))
 
 
-def linucb_score_blocked(x, theta, ainv, pen, infl, alpha, out) -> None:
+def state_ptr(t, start: int) -> int:
+    """The address of state ``start`` of a contiguous tensor whose axis 0
+    is the state axis."""
+    if not start:     # every stack of at most MAX_STATES: one slice
+        return t.data_ptr()
+    return t.data_ptr() + start * t.stride(0) * t.element_size()
+
+
+def linucb_score_blocked(x, theta, ainv, pen, infl, alpha, out,
+                         states=None) -> None:
     """Scores into ``out`` (S, R, K) on the current stream. All operands
-    are checked, contiguous f32 CUDA tensors (``ops.linucb_score``)."""
+    are checked, contiguous f32 CUDA tensors (``ops.linucb_score``).
+    ``states`` = (start, stop) scores only those states (at most
+    ``checks.MAX_STATES``; default all)."""
     S, R, d = x.shape
     K = theta.shape[1]
+    a, z = states or (0, S)
     err = build.library().linucb_score_launch(
-        x.data_ptr(), theta.data_ptr(), ainv.data_ptr(), pen.data_ptr(),
-        infl.data_ptr(), alpha.data_ptr(), out.data_ptr(), S, R, K, d,
-        score_plan(S, R, K, d)["dp"],
+        *(state_ptr(t, a) for t in (x, theta, ainv, pen, infl, alpha, out)),
+        z - a, R, K, d, score_plan(S, R, K, d)["dp"],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         raise RuntimeError(f"linucb_score launch failed: CUDA error {err}")

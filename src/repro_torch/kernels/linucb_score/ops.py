@@ -25,7 +25,8 @@ def linucb_score(x, theta, ainv, pen, infl, alpha):
 
 def _launch(x, theta, ainv, pen, infl, alpha):
     """The CUDA path: check the operands, allocate the output, launch the
-    kernel on the current stream and count the launch. The kernel masks
+    kernel on the current stream, once per slice of at most
+    ``checks.MAX_STATES`` states, and count each launch. The kernel masks
     ragged row tiles itself, so nothing is padded."""
     S, R, d = x.shape
     K = theta.shape[1]
@@ -35,6 +36,7 @@ def _launch(x, theta, ainv, pen, infl, alpha):
         ainv=(ainv, (S, K, d, d)), pen=(pen, (S, K)), infl=(infl, (S, K)),
         alpha=(alpha, (S,)))
     out = torch.empty((S, R, K), dtype=torch.float32, device=x.device)
-    linucb_score_blocked(x, theta, ainv, pen, infl, alpha, out)
-    LAUNCHES[0] += 1
+    for states in checks.state_slices(S):
+        linucb_score_blocked(x, theta, ainv, pen, infl, alpha, out, states)
+        LAUNCHES[0] += 1
     return out

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.linucb_score.kernel import score_plan
+from repro_torch.kernels.linucb_score.kernel import score_plan, state_ptr
 
 ROUTES = ("single", "pdl")
 
@@ -32,18 +32,21 @@ def scores_workspace(S: int, B: int, K: int, device):
 
 
 def linucb_step_blocked(ins, outs, scores, *, num_valid: int,
-                        dt_max: int) -> None:
+                        dt_max: int, states=None) -> None:
     """Run one block step. ``ins`` are the 23 operands of
     ``ref.linucb_step_ref`` in order; ``outs`` the 10 preallocated
     outputs (A', A_inv', b', theta', last_upd', arms, r, c, lam', c_ema');
     ``scores`` is ``scores_workspace(S, B, K)``. All are checked,
-    contiguous CUDA tensors (``ops.linucb_step``)."""
+    contiguous CUDA tensors (``ops.linucb_step``). ``states`` = (start,
+    stop) runs only those states of the stack (at most
+    ``checks.MAX_STATES``; default all)."""
     S, B, d = ins[5].shape
     K = ins[2].shape[1]
+    a, z = states or (0, S)
     err = build.library().linucb_step_launch(
-        *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
-        None if scores is None else scores.data_ptr(),
-        S, B, K, d, score_plan(S, B, K, d)["dp"], num_valid, dt_max,
+        *(state_ptr(t, a) for t in ins), *(state_ptr(t, a) for t in outs),
+        None if scores is None else state_ptr(scores, a),
+        z - a, B, K, d, score_plan(S, B, K, d)["dp"], num_valid, dt_max,
         torch.cuda.current_stream(ins[0].device).cuda_stream)
     if err:
         raise RuntimeError(f"linucb_step launch failed: CUDA error {err}")

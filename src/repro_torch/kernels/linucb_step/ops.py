@@ -48,10 +48,10 @@ def linucb_step(*operands, dt_max: int = 4096):
 
 def _launch(ins, dt_max: int):
     """The CUDA path: check the 23 operands, allocate the 10 outputs,
-    launch the kernel on the current stream and count the launch and its
-    route. Every
-    request row is real (num_valid = B) and the kernel takes any B and
-    d <= 128, so nothing is padded."""
+    launch the kernel on the current stream, once per slice of at most
+    ``checks.MAX_STATES`` states, and count each launch and its route.
+    Every request row is real (num_valid = B) and the kernel takes any B
+    and d <= 128, so nothing is padded."""
     A, _, b, _, last_upd, X = ins[:6]
     S, B, d = X.shape
     K = b.shape[1]
@@ -72,9 +72,11 @@ def _launch(ins, dt_max: int):
             torch.empty((S, B), dtype=f32, device=X.device),
             torch.empty((S, B), dtype=f32, device=X.device),
             vec(), vec())
-    linucb_step_blocked(ins, outs, scores_workspace(S, B, K, X.device),
-                        num_valid=B, dt_max=dt_max)
-    with _COUNT_LOCK:
-        LAUNCHES[0] += 1
-        ROUTE_LAUNCHES[route(B)] += 1
+    scores = scores_workspace(S, B, K, X.device)
+    for states in checks.state_slices(S):
+        linucb_step_blocked(ins, outs, scores, num_valid=B, dt_max=dt_max,
+                            states=states)
+        with _COUNT_LOCK:
+            LAUNCHES[0] += 1
+            ROUTE_LAUNCHES[route(B)] += 1
     return outs

@@ -4,6 +4,9 @@ Parameters are nested dicts of tensors with per-layer leaves stacked on
 axis 0, the JAX package's tree; its ``lax.scan`` over layers (and over
 groups of layers) is a loop over that axis here. Entry points:
 
+  * ``forward_train``   — tokens -> (loss, metrics), differentiable by
+    torch autograd; chunked cross-entropy, so the (B, S, V) logits are
+    never held, and optional per-layer activation checkpointing (remat).
   * ``prefill_forward`` — one full-sequence pass that emits the decode
     caches and the last token's logits: the serving path.
   * ``prefill``         — the token-by-token oracle through ``decode_step``.
@@ -29,16 +32,23 @@ Families (``cfg.arch_type``):
 
 ``impl`` selects the attention route (``models/attention.py``) and the SSD
 scan's (``models/ssm.py``); None is the CUDA kernels on the card and the
-plain route on the CPU. Decode's cross-attention is an einsum over the
-encoder's frames, as in the JAX package. KV caches in another dtype than
-the model's are not ported yet: they raise ``NotImplementedError``.
+plain route on the CPU for serving, and ``chunked`` on every device for
+``forward_train``: the kernels have no backward (neither have the JAX
+package's Pallas kernels, and its train step runs ``chunked``), so a
+kernel route under autograd raises ``NotImplementedError``. Decode's
+cross-attention is an einsum over the encoder's frames, as in the JAX
+package. KV caches in another dtype than the model's are not ported yet:
+they raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+import functools
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
+from repro_torch import tree
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
@@ -217,41 +227,56 @@ def _apply_ssm_block(p, cfg: ModelConfig, x, impl):
     return x + y, st
 
 
+def _maybe_remat(fn, remat: bool):
+    """Per-layer activation checkpointing: applied to each block inside
+    the layer loop, so the backward holds one layer's internals at a time
+    (a checkpoint around the whole forward would save nothing: the
+    backward would re-run it whole). The JAX package's ``jax.checkpoint``
+    inside its layer scan."""
+    if not remat:
+        return fn
+    return functools.partial(torch.utils.checkpoint.checkpoint, fn,
+                             use_reentrant=False)
+
+
 def _run_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
-               impl, enc=None):
+               impl, enc=None, remat: bool = False):
     """The decoder blocks over a full sequence, in the order of the JAX
-    package's scans. Returns (x, aux, kv, shared, states): the mean MoE aux
-    loss (0 without MoE), and what the blocks emit for the caches, block
-    by block: the primary attention stack's (k, v), the secondary stack's
-    (the hybrid's shared-block applications, the interleaved dense
-    layers), the SSM states."""
+    package's scans, each block under ``_maybe_remat``. Returns (x, aux,
+    kv, shared, states): the mean MoE aux loss (0 without MoE), and what
+    the blocks emit for the caches, block by block: the primary attention
+    stack's (k, v), the secondary stack's (the hybrid's shared-block
+    applications, the interleaved dense layers), the SSM states."""
     kv, shared, states, auxs = [], [], [], []
     blocks = params["blocks"]
     kind = cfg.arch_type
+    attn_blk = _maybe_remat(_apply_attn_block_kv, remat)
     if kind in ("dense", "vlm", "audio"):
         for i in range(cfg.num_layers):
-            x, kv_i = _apply_attn_block_kv(_layer(blocks, i), cfg, x,
-                                           positions, impl, enc)
+            x, kv_i = attn_blk(_layer(blocks, i), cfg, x, positions, impl,
+                               enc)
             kv.append(kv_i)
     elif kind == "moe":
+        moe_blk = _maybe_remat(_apply_moe_block_kv, remat)
         per = cfg.moe_every - 1
         for g in range(stack_sizes(cfg)["blocks"]):
             for j in range(per):
-                x, kv_i = _apply_attn_block_kv(
+                x, kv_i = attn_blk(
                     _layer(params["dense_blocks"], g * per + j), cfg, x,
                     positions, impl)
                 shared.append(kv_i)
-            x, kv_i, aux = _apply_moe_block_kv(_layer(blocks, g), cfg, x,
-                                               positions, impl)
+            x, kv_i, aux = moe_blk(_layer(blocks, g), cfg, x, positions,
+                                   impl)
             kv.append(kv_i)
             auxs.append(aux)
     elif kind in ("ssm", "hybrid"):
+        ssm_blk = _maybe_remat(_apply_ssm_block, remat)
         for i in range(cfg.num_layers):
-            x, st = _apply_ssm_block(_layer(blocks, i), cfg, x, impl)
+            x, st = ssm_blk(_layer(blocks, i), cfg, x, impl)
             states.append(st)
             if kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
-                x, kv_i = _apply_attn_block_kv(params["shared_attn"], cfg,
-                                               x, positions, impl)
+                x, kv_i = attn_blk(params["shared_attn"], cfg, x, positions,
+                                   impl)
                 shared.append(kv_i)
     else:
         raise ValueError(kind)
@@ -262,25 +287,27 @@ def _run_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
 
 def decoder_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
                   impl: Optional[str] = None, enc_out=None,
-                  enc_positions=None):
+                  enc_positions=None, remat: bool = False):
     """The decoder blocks over a full sequence. Returns (x, aux); aux is
     the mean MoE load-balance loss, 0 for the other families."""
     _check_ported(cfg)
     enc = None if enc_out is None else (enc_out, enc_positions)
-    x, aux, _, _, _ = _run_stack(params, cfg, x, positions, impl, enc)
+    x, aux, _, _, _ = _run_stack(params, cfg, x, positions, impl, enc,
+                                 remat)
     return x, aux
 
 
 def encoder_stack(params, cfg: ModelConfig, frames: Tensor,
-                  impl: Optional[str] = None) -> Tensor:
+                  impl: Optional[str] = None, remat: bool = False) -> Tensor:
     """Whisper-style bidirectional encoder over (stub) frame features
     (B, T, frontend_dim) in the compute dtype: full-mode self-attention
     with RoPE over positions 0..T-1, then the encoder's final norm."""
     x = frames @ params["frontend_proj"].to(frames.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    blk = _maybe_remat(_apply_attn_block_kv, remat)
     for i in range(cfg.encoder_layers):
-        x, _ = _apply_attn_block_kv(_layer(params["encoder_blocks"], i),
-                                    cfg, x, positions, impl, mode="full")
+        x, _ = blk(_layer(params["encoder_blocks"], i), cfg, x, positions,
+                   impl, mode="full")
     return layers.apply_norm(cfg.norm, params["enc_final_norm"], x)
 
 
@@ -306,6 +333,100 @@ def _cross_kv(params, cfg: ModelConfig, enc_out: Tensor):
     shape = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.hd)
     return {f"cross_{n}": (enc_out @ xattn[f"w_{n}"].to(enc_out.dtype)[:, None]
                            ).reshape(shape) for n in ("k", "v")}
+
+
+# ---------------------------------------------------------------------------
+# training forward + chunked loss
+# ---------------------------------------------------------------------------
+
+def _ce_block(h: Tensor, w_head: Tensor, labels: Tensor,
+              mask: Tensor) -> Tuple[Tensor, Tensor]:
+    """One block's masked next-token NLL sum and mask sum, from f32 logits
+    (B, block, V)."""
+    logits = (h @ w_head.to(h.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    return ((lse - picked) * mask).sum(), mask.sum()
+
+
+def chunked_cross_entropy(h: Tensor, w_head: Tensor, labels: Tensor,
+                          mask: Tensor, block: int = 512
+                          ) -> Tuple[Tensor, Tensor]:
+    """Next-token CE without holding (B, S, V) logits: each block of
+    ``block`` positions runs under a checkpoint, so its logits are
+    recomputed in the backward and freed after it.
+
+    h: (B, S, D) final hidden states; labels / mask: (B, S). Returns
+    (sum_nll, sum_mask) so callers can weight across microbatches."""
+    S = h.shape[1]
+    block = min(block, S)
+    assert S % block == 0, (S, block)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, block):
+        sl = slice(i, i + block)
+        nll, m = torch.utils.checkpoint.checkpoint(
+            _ce_block, h[:, sl], w_head, labels[:, sl], mask[:, sl],
+            use_reentrant=False)
+        nll_sum = nll_sum + nll
+        m_sum = m_sum + m
+    return nll_sum, m_sum
+
+
+def forward_train(params, cfg: ModelConfig, batch: Dict[str, Tensor],
+                  impl: Optional[str] = "chunked", remat: bool = False
+                  ) -> Tuple[Tensor, Dict[str, Tensor]]:
+    """The training loss and its metrics: batch holds tokens (B, S_text)
+    and labels (B, S_text), and frontend (B, F, frontend_dim) for the VLM
+    family, encoder_frames (B, T, frontend_dim) for the encoder-decoder
+    family (which raises ValueError without them).
+
+    The VLM's frontend embeddings are put before the text with label
+    mask 0; the MoE families add ``router_aux_weight`` times the mean
+    load-balance loss. ``impl`` None is ``chunked``; ``cuda`` (the
+    kernels, which have no backward) raises NotImplementedError when any
+    parameter requires grad. Returns (loss, {"nll", "aux", "tokens"}),
+    "nll" being the loss, as in the JAX package."""
+    impl = impl or "chunked"
+    if impl == "cuda" and any(t.requires_grad for t in tree.leaves(params)):
+        raise NotImplementedError(
+            f"{cfg.name}: impl='cuda' under autograd: the CUDA kernels have "
+            "no backward (their outputs carry no gradient). Train on the "
+            "'chunked' route, as the JAX package's train step does "
+            "(make_train_step(impl='chunked')).")
+    tokens, labels = batch["tokens"], batch["labels"]
+    B = tokens.shape[0]
+    dt = cfg.torch_dtype
+    x = params["embed"].to(dt)[tokens.long()]
+
+    enc_out = enc_positions = None
+    if cfg.is_encdec:
+        frames = batch.get("encoder_frames")
+        _need_frames(cfg, frames)
+        enc_out = encoder_stack(params, cfg, frames.to(dt), impl,
+                                remat=remat)
+        enc_positions = torch.arange(enc_out.shape[1], device=x.device)
+    if cfg.frontend_tokens > 0 and not cfg.is_encdec:
+        fe = batch["frontend"].to(dt) @ params["frontend_proj"].to(dt)
+        x = torch.cat([fe, x], dim=1)                      # early fusion
+        pad = labels.new_zeros((B, cfg.frontend_tokens))
+        labels = torch.cat([pad, labels], dim=1)
+        mask = torch.cat([
+            torch.zeros((B, cfg.frontend_tokens), device=x.device),
+            torch.ones(batch["labels"].shape, device=x.device)], dim=1)
+    else:
+        mask = torch.ones(labels.shape, device=x.device)
+
+    positions = torch.arange(x.shape[1], device=x.device)
+    x, aux = decoder_stack(params, cfg, x, positions, impl, enc_out,
+                           enc_positions, remat=remat)
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    nll_sum, m_sum = chunked_cross_entropy(x, head_weight(params, cfg),
+                                           labels, mask)
+    loss = nll_sum / torch.clamp_min(m_sum, 1.0)
+    if cfg.is_moe:
+        loss = loss + cfg.router_aux_weight * aux
+    return loss, {"nll": loss, "aux": aux, "tokens": m_sum}
 
 
 # ---------------------------------------------------------------------------

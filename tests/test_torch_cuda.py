@@ -350,14 +350,51 @@ def test_warm_start_bits_do_not_depend_on_the_stack(dev, n):
         assert torch.equal(getattr(small, name)[0], getattr(big, name)[0])
 
 
-def test_step_kernel_refuses_more_states_than_its_grid(dev):
-    """Above 65,535 states the kernels' grid cannot launch: the operand
-    check says so and names the remedy (the shapes alone are checked)."""
+@pytest.mark.parametrize("B", [1, 3])
+def test_linucb_kernels_above_the_grid_limit(dev, B):
+    """A stack of 65,537 states (above the grid's 65,535) at K 8, d 4: the
+    wrappers launch in slices, and the step (``single`` at B = 1, ``pdl``
+    above) and the scores equal the same stack run as two sub-stacks bit
+    for bit."""
     from repro_torch.kernels import checks
+    from repro_torch.kernels.linucb_step.kernel import route
 
-    checks.cuda_operands("linucb_step", (checks.MAX_STATES, 8, 26))
-    with pytest.raises(ValueError, match="chunk_size"):
-        checks.cuda_operands("linucb_step", (checks.MAX_STATES + 1, 8, 26))
+    S, K, d = checks.MAX_STATES + 2, 8, 4
+    gen = torch.Generator(device=dev).manual_seed(B)
+    f = lambda *shape: torch.rand(shape, generator=gen,  # noqa: E731
+                                  device=dev)
+    M = f(S, K, d, d) * 0.3
+    A = M @ M.transpose(-1, -2) + torch.eye(d, device=dev)
+    Ainv = torch.linalg.inv(A).contiguous()
+    b = f(S, K, d) - 0.5
+    vec = lambda v: torch.full((S,), v, device=dev)  # noqa: E731
+    args = [A, Ainv, b, (Ainv @ b[..., None])[..., 0],
+            torch.randint(0, 50, (S, K), generator=gen, device=dev,
+                          dtype=torch.int32),
+            f(S, B, d) - 0.5, f(S, B, K), f(S, B, K) * 1e-3,
+            f(S, B, K) * 1e-7, torch.ones((S, K), dtype=torch.bool,
+                                          device=dev),
+            f(S, K) * 0.5, f(S, K) + 0.01, vec(0.05), vec(0.997), vec(0.05),
+            vec(0.05), vec(5.0), vec(0.2), vec(5e-4), vec(6.6e-4),
+            torch.full((S,), 60, dtype=torch.int32, device=dev),
+            torch.full((S,), 1, dtype=torch.int32, device=dev),
+            torch.zeros((S, B), dtype=torch.bool, device=dev)]
+    n, n_route = step_ops.LAUNCHES[0], step_ops.ROUTE_LAUNCHES[route(B)]
+    whole = step_ops.linucb_step(*args)
+    assert step_ops.LAUNCHES[0] == n + 2
+    assert step_ops.ROUTE_LAUNCHES[route(B)] == n_route + 2
+    cut = 40_000
+    parts = [step_ops.linucb_step(*(a[sl].contiguous() for a in args))
+             for sl in (slice(0, cut), slice(cut, S))]
+    for i, w in enumerate(whole):
+        assert torch.equal(w, torch.cat([p[i] for p in parts])), i
+    sargs = (args[5], args[3], Ainv, args[10], args[11], args[12])
+    n = score_ops.LAUNCHES[0]
+    scores = score_ops.linucb_score(*sargs)
+    assert score_ops.LAUNCHES[0] == n + 2
+    assert torch.equal(scores, torch.cat([
+        score_ops.linucb_score(*(a[sl].contiguous() for a in sargs))
+        for sl in (slice(0, cut), slice(cut, S))]))
 
 
 ATTN_TOL ={torch.float32: dict(rtol=2e-4, atol=2e-5),
@@ -768,3 +805,58 @@ def test_zoo_model_on_card_matches_cpu(dev, arch):
             out.append(logits.cpu())
         runs.append(torch.stack(out))
     torch.testing.assert_close(runs[1], runs[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m"])
+def test_train_step_on_card_matches_cpu(dev, arch):
+    """A SMOKE train step (f32, TF32 off) on the card against the same
+    weights and batch on the CPU: forward_train's loss within 1e-4
+    relative and each gradient leaf within 1e-3 of its max |g|, then one
+    make_train_step step's loss and grad norm within 1e-4 relative. The
+    training route launches none of the kernels."""
+    from repro_torch import configs, tree
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.models import forward_train, init_model
+    from repro_torch.training import make_train_step, train_state_init
+
+    cfg = configs.get_smoke(arch)
+    p = init_model(cfg, seed=0, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    before = (flash_ops.LAUNCHES[0], ssd_ops.LAUNCHES[0])
+    runs = []
+    for d in ("cpu", dev):
+        pd = tree.map_tree(lambda t: t.to(d).requires_grad_(), p)
+        bd = {k: v.to(d) for k, v in batch.items()}
+        loss, _ = forward_train(pd, cfg, bd)
+        grads = torch.autograd.grad(loss, list(tree.leaves(pd)),
+                                    materialize_grads=True)
+        _, m = make_train_step(cfg, total_steps=10)(
+            train_state_init(tree.map_tree(lambda t: t.to(d), p)), bd)
+        runs.append((loss.detach().cpu(), [x.cpu() for x in grads],
+                     {k: v.cpu() for k, v in m.items()}))
+    (l0, g0, m0), (l1, g1, m1) = runs
+    torch.testing.assert_close(l1, l0, rtol=1e-4, atol=0)
+    for a, w in zip(g1, g0):
+        assert float((a - w).abs().max()) <= 1e-3 * float(w.abs().max())
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(m1[k], m0[k], rtol=1e-4, atol=0)
+    assert (flash_ops.LAUNCHES[0], ssd_ops.LAUNCHES[0]) == before
+
+
+def test_train_refuses_kernel_route_on_card(dev):
+    """impl="cuda" under autograd raises before any kernel launches."""
+    from repro_torch import configs, tree
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import forward_train, init_model
+
+    cfg = configs.get_smoke("olmo-1b")
+    p = tree.map_tree(lambda t: t.requires_grad_(),
+                      init_model(cfg, seed=0, device=dev))
+    toks = torch.zeros((1, 32), dtype=torch.int32, device=dev)
+    n = flash_ops.LAUNCHES[0]
+    with pytest.raises(NotImplementedError, match="no backward"):
+        forward_train(p, cfg, {"tokens": toks, "labels": toks}, impl="cuda")
+    assert flash_ops.LAUNCHES[0] == n

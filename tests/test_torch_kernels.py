@@ -22,6 +22,7 @@ from repro_torch.kernels.linucb_step import ops as step_ops  # noqa: E402
 from repro_torch.kernels.linucb_score.kernel import (  # noqa: E402
     TILE_ROWS, WIDTHS, score_plan,
 )
+from repro_torch.kernels.linucb_score.ref import linucb_score_ref  # noqa: E402
 from repro_torch.kernels.linucb_step.kernel import route  # noqa: E402
 from repro_torch.kernels.linucb_step.ref import (  # noqa: E402
     linucb_step_per_arm_ref, linucb_step_ref,
@@ -265,3 +266,76 @@ def test_step_route():
     before = dict(step_ops.ROUTE_LAUNCHES)
     step_ops.linucb_step(*_port_operands(_step_operands(1, B=1)))
     assert step_ops.ROUTE_LAUNCHES == before
+
+
+@pytest.mark.parametrize("S,n", [(1, 1), (checks.MAX_STATES, 1),
+                                 (checks.MAX_STATES + 1, 2), (200_000, 4)])
+def test_state_slices(S, n):
+    """The LinUCB kernels' launch plan: slices of at most MAX_STATES
+    states (the grid's state axis), in order, covering the stack."""
+    sl = checks.state_slices(S)
+    assert len(sl) == n and sl[0][0] == 0 and sl[-1][1] == S
+    assert all(a < z <= a + checks.MAX_STATES for a, z in sl)
+    assert all(z == a2 for (_, z), (a2, _) in zip(sl, sl[1:]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32, torch.bool])
+def test_state_ptr(dtype):
+    """The address a slice's launch passes: that of state ``start``."""
+    from repro_torch.kernels.linucb_score.kernel import state_ptr
+
+    t = torch.zeros((5, 3, 2), dtype=dtype)
+    for start in (0, 1, 4):
+        assert state_ptr(t, start) == t[start].data_ptr()
+
+
+@pytest.mark.parametrize("B", [1, 13])
+def test_step_launch_in_slices_equals_whole(monkeypatch, B):
+    """``_launch``'s slicing, on the CPU with slices of 3 states and the
+    plain version in the kernel's place on each slice's states (the
+    scores workspace allocated on ``pdl`` only): one launch is counted
+    per slice, and the whole equals the unsliced plain run bit for
+    bit."""
+    monkeypatch.setattr(checks, "MAX_STATES", 3)
+    seen = []
+
+    def fake(ins, outs, scores, *, num_valid, dt_max, states):
+        a, z = states
+        seen.append((z - a, scores is None))
+        ref = linucb_step_ref(*(t[a:z] for t in ins), num_valid=num_valid,
+                              dt_max=dt_max)
+        for o, w in zip(outs, ref):
+            o[a:z] = w
+
+    monkeypatch.setattr(step_ops, "linucb_step_blocked", fake)
+    args = [a.contiguous() for a in _port_operands(_step_operands(6, B=B))]
+    before, n_route = step_ops.LAUNCHES[0], step_ops.ROUTE_LAUNCHES[route(B)]
+    got = step_ops._launch(args, 4096)
+    assert seen == [(3, B == 1)] * 2
+    assert step_ops.LAUNCHES[0] == before + 2
+    assert step_ops.ROUTE_LAUNCHES[route(B)] == n_route + 2
+    for g, w in zip(got, linucb_step_ref(*args, num_valid=B, dt_max=4096)):
+        assert torch.equal(g, w)
+
+
+def test_score_launch_in_slices_equals_whole(monkeypatch):
+    monkeypatch.setattr(checks, "MAX_STATES", 3)
+    seen = []
+
+    def fake(x, theta, ainv, pen, infl, alpha, out, states):
+        a, z = states
+        seen.append(z - a)
+        out[a:z] = linucb_score_ref(*(t[a:z] for t in (x, theta, ainv, pen,
+                                                        infl, alpha)))
+
+    monkeypatch.setattr(score_ops, "linucb_score_blocked", fake)
+    rng = np.random.default_rng(0)
+    S, R, K, d = 6, 20, 3, 10
+    args = (_t(rng.standard_normal((S, R, d))),
+            _t(rng.standard_normal((S, K, d))),
+            _t(_spd_inv(rng, (S, K), d)[1]), _t(rng.uniform(0, 1, (S, K))),
+            _t(rng.uniform(0.01, 1, (S, K))), _t(rng.uniform(0.01, 0.1, S)))
+    before = score_ops.LAUNCHES[0]
+    got = score_ops._launch(*args)
+    assert seen == [3, 3] and score_ops.LAUNCHES[0] == before + 2
+    assert torch.equal(got, linucb_score_ref(*args))
