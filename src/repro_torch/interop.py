@@ -26,6 +26,7 @@ from repro_torch.core.types import (
     HYPER_FIELDS, ArmPrior, HyperParams, PacerState, RouterState,
 )
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import FP8_DTYPES
 from repro_torch.models.transformer import DecodeCaches, stack_sizes
 from repro_torch.optim.adamw import AdamWState
 from repro_torch.training.train_step import TrainState
@@ -201,22 +202,44 @@ _CACHE_FIELDS = ("k", "v", "ssm_conv", "ssm_h", "shared_k", "shared_v",
                  "cross_k", "cross_v")
 
 
-def caches_from_numpy(caches, device) -> DecodeCaches:
+_FP8_NAMES = tuple(str(d).removeprefix("torch.") for d in FP8_DTYPES)
+
+
+def caches_from_numpy(caches, device, kv_dtype=None) -> DecodeCaches:
     """The port's ``DecodeCaches`` from a JAX ``DecodeCaches`` of any
     family (or a mapping of its stacks), and its scalar ``pos``; the
-    stacks it does not hold stay None."""
+    stacks it does not hold stay None. An fp8 stack comes as the JAX
+    package's fp8 array (known by its dtype's name and read through a
+    uint8 view, so nothing here imports JAX's numpy fp8 types) or as
+    uint8 bits, ``caches_to_numpy``'s form, with ``kv_dtype`` naming the
+    format."""
     def tensor(name):
         a = (caches.get(name) if isinstance(caches, Mapping)
              else getattr(caches, name, None))
-        return None if a is None else torch.as_tensor(np.array(a),
-                                                      device=device)
+        if a is None:
+            return None
+        a = np.array(a)
+        fp8 = a.dtype.name if a.dtype.name in _FP8_NAMES else None
+        if a.dtype == np.uint8 and kv_dtype is not None:
+            fp8 = str(kv_dtype).removeprefix("torch.")
+        if fp8 is None:
+            return torch.as_tensor(a, device=device)
+        return torch.as_tensor(a.view(np.uint8), device=device).view(
+            getattr(torch, fp8))
     return DecodeCaches(**{n: tensor(n) for n in _CACHE_FIELDS},
                         pos=int(np.asarray(_get(caches, "pos"))))
 
 
 def caches_to_numpy(caches: DecodeCaches) -> dict:
-    """The caches' present stacks as f32 numpy arrays, and ``pos``."""
-    out = {n: getattr(caches, n).detach().float().cpu().numpy()
+    """The caches' present stacks as numpy, and ``pos``: f32 arrays, but
+    fp8 stacks as uint8 arrays of their bits (a JAX caller views them as
+    its fp8 dtype; ``caches_from_numpy`` takes them with ``kv_dtype``)."""
+    def arr(t):
+        t = t.detach().cpu()
+        if t.dtype in FP8_DTYPES:
+            return t.view(torch.uint8).numpy()
+        return t.float().numpy()
+    out = {n: arr(getattr(caches, n))
            for n in _CACHE_FIELDS if getattr(caches, n) is not None}
     out["pos"] = np.int32(caches.pos)
     return out

@@ -134,7 +134,7 @@ def _load() -> ctypes.CDLL:
     lib.flash_attention_launch.restype = I
     lib.flash_attention_tc_launch.argtypes = [P] * 4 + [I] * 8 + [F, P]
     lib.flash_attention_tc_launch.restype = I
-    lib.decode_attention_launch.argtypes = [P] * 7 + [I] * 7 + [F, I, P]
+    lib.decode_attention_launch.argtypes = [P] * 7 + [I] * 7 + [F, I, I, P]
     lib.decode_attention_launch.restype = I
     LL = ctypes.c_longlong
     lib.ssd_scan_launch.argtypes = ([P] * 10 + [I] * 6 + [LL] * 6

@@ -17,6 +17,8 @@ MAX_HD = 128
 MAX_G = 64
 MAX_G_HD = 2048
 ATTN_DTYPES = (torch.float32, torch.bfloat16)
+# The KV caches decode_attention also reads (widened on the card).
+FP8_KV_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
 # Compile-time limits of csrc/ssd_scan.cu (kMaxQ, kMaxN) and the types its
 # x / B / C operands take (dt, A and D are f32).
 MAX_SSD_CHUNK = 128
@@ -70,6 +72,16 @@ def attention_operands(name: str, hd: int, H: int, KV: int,
     if dtype not in ATTN_DTYPES:
         raise TypeError(f"{name}: kernel takes {ATTN_DTYPES}; got {dtype}")
     _check(name, dtype, operands)
+
+
+def kv_cache_dtype(name: str, q_dtype, kv_dtype):
+    """``kv_dtype`` if the decode kernels read a cache of it against q of
+    ``q_dtype``: q's own dtype or fp8. Any other pair (an f32 cache against
+    bf16 q, or the reverse) raises: nothing is cast before the kernel."""
+    if kv_dtype != q_dtype and kv_dtype not in FP8_KV_DTYPES:
+        raise TypeError(f"{name}: kernel takes a cache of q's dtype or of "
+                        f"{FP8_KV_DTYPES}; got q {q_dtype}, cache {kv_dtype}")
+    return kv_dtype
 
 
 def aligned16(name: str, **tensors) -> None:

@@ -4,6 +4,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace attn {
@@ -17,13 +18,22 @@ constexpr float kMinDenom = 1e-30f;
 constexpr int kMaxHd = 128;
 
 // Input types: 0 = float32, 1 = bfloat16 (the dtype code of the C entry
-// points).
+// points); decode's K / V also 2 = float8_e4m3fn, 3 = float8_e5m2.
 constexpr int kF32 = 0;
 constexpr int kBF16 = 1;
+constexpr int kF8E4M3 = 2;
+constexpr int kF8E5M2 = 3;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+// Both fp8 formats widen to f32 exactly (cvt through f16 on sm_90).
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e5m2 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -33,6 +43,14 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e4m3 from_f32<__nv_fp8_e4m3>(float x) {
+  return __nv_fp8_e4m3(x);
+}
+template <>
+__device__ __forceinline__ __nv_fp8_e5m2 from_f32<__nv_fp8_e5m2>(float x) {
+  return __nv_fp8_e5m2(x);
 }
 
 // Max / sum over the `width` lanes of a group that starts at a multiple of

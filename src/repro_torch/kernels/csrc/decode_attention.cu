@@ -44,6 +44,15 @@
 //     c and c + 32 and widens each element of their K rows once for all
 //     the warp's heads (q in f32 in shared memory); a thread owns output
 //     elements for P V.
+// K / V may be of another type than q: the fp8 caches (e4m3, e5m2), with
+// q in bf16 or f32. Both fp8 formats widen to bf16 and to f32 exactly, so
+// the kernel on an fp8 cache gives the bits it gives on that cache cast
+// to q's type, and reads half (bf16) or a quarter (f32) of its bytes. On
+// the kMma path the fp8 tiles come in by the same 16-byte cp.async copies
+// (an fp8 row of hd % 16 == 0 is hd bytes) into a ring of their own, and
+// one pass per tile widens them into the bf16 tile that ldmatrix reads
+// (cvt.rn.f16x2.e4m3x2 / e5m2x2, then f16 -> bf16). The FMA path reads
+// the fp8 elements and widens each on its way to f32.
 // Either way warp w keeps the online softmax of heads w, w + 8, ... in
 // f32: it holds a head's 64 scores of the tile, max and sum by warp
 // shuffles. The block writes its partial (m, l, acc) in f32 to a
@@ -112,18 +121,18 @@ __device__ __forceinline__ int next_valid(const uint8_t* __restrict__ valid,
 }
 
 // Rows [w0, w0 + kBK) of one kv head into a (kBK, rb)-byte tile; rows
-// past W are zeros.
-template <typename T>
+// past W are zeros. With `vec`, by 16-byte cp.async copies.
+template <typename KT>
 __device__ __forceinline__ void load_tile(uint8_t* dst,
-                                          const T* __restrict__ src,
+                                          const KT* __restrict__ src,
                                           size_t stride, int w0, int W,
                                           int hd, int rb, bool vec) {
   if (vec) {
-    const int chunks = hd * static_cast<int>(sizeof(T)) / 16;
+    const int chunks = hd * static_cast<int>(sizeof(KT)) / 16;
     for (int i = threadIdx.x; i < kBK * chunks; i += kThreads) {
       const int r = i / chunks, c = i - r * chunks;
       const int w = w0 + r;
-      const T* s = src + static_cast<size_t>(w < W ? w : 0) * stride;
+      const KT* s = src + static_cast<size_t>(w < W ? w : 0) * stride;
       cp_async16(dst + r * rb + 16 * c,
                  reinterpret_cast<const uint8_t*>(s) + 16 * c, w < W ? 16 : 0);
     }
@@ -131,10 +140,55 @@ __device__ __forceinline__ void load_tile(uint8_t* dst,
     for (int i = threadIdx.x; i < kBK * hd; i += kThreads) {
       const int r = i / hd, d = i - r * hd;
       const int w = w0 + r;
-      reinterpret_cast<T*>(dst + r * rb)[d] =
+      reinterpret_cast<KT*>(dst + r * rb)[d] =
           w < W ? src[static_cast<size_t>(w) * stride + d]
-                : attn::from_f32<T>(0.f);
+                : attn::from_f32<KT>(0.f);
     }
+  }
+}
+
+template <typename KT>
+struct Fp8Kind;
+template <>
+struct Fp8Kind<__nv_fp8_e4m3> {
+  static constexpr __nv_fp8_interpretation_t value = __NV_E4M3;
+};
+template <>
+struct Fp8Kind<__nv_fp8_e5m2> {
+  static constexpr __nv_fp8_interpretation_t value = __NV_E5M2;
+};
+
+// Two fp8 values (the low and high byte of `bits`) as two bf16 in one
+// register, exactly: fp8 -> f16 is exact (cvt.rn.f16x2.e4m3x2 / e5m2x2),
+// and so are f16 -> f32 -> bf16 for these values (at most 3 mantissa
+// bits, exponents within bf16's).
+template <typename KT>
+__device__ __forceinline__ uint32_t widen2(uint32_t bits) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(bits), Fp8Kind<KT>::value);
+  const float2 f = __half22float2(__half2(h));
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// An fp8 tile (kBK rows of `rbs` bytes) widened into a bf16 tile (rows of
+// `rb` bytes), 8 elements a thread at a time: one 8-byte shared load, one
+// 16-byte shared store (hd % 16 == 0 on this path; both row strides are
+// multiples of 16 bytes).
+template <typename KT>
+__device__ __forceinline__ void widen_tile(uint8_t* dst,
+                                           const uint8_t* src, int hd,
+                                           int rb, int rbs) {
+  const int octs = hd / 8;
+  for (int i = threadIdx.x; i < kBK * octs; i += kThreads) {
+    const int r = i / octs, c = i - r * octs;
+    const uint2 raw = *reinterpret_cast<const uint2*>(src + r * rbs + 8 * c);
+    uint4 out;
+    out.x = widen2<KT>(raw.x & 0xffffu);
+    out.y = widen2<KT>(raw.x >> 16);
+    out.z = widen2<KT>(raw.y & 0xffffu);
+    out.w = widen2<KT>(raw.y >> 16);
+    *reinterpret_cast<uint4*>(dst + r * rb + 16 * c) = out;
   }
 }
 
@@ -160,15 +214,20 @@ __host__ __device__ inline size_t q_bytes(int G, int hd) {
   return f32 > bf16 ? f32 : bf16;
 }
 
-__host__ __device__ inline size_t smem_bytes(int G, int hd, int es) {
+// `es`: the bytes of a K / V element; `widen`: the fp8 kMma path, whose
+// widened bf16 K and V tiles follow the ring.
+__host__ __device__ inline size_t smem_bytes(int G, int hd, int es,
+                                             bool widen) {
   return static_cast<size_t>(2 * 2 * kBK) * row_bytes(hd, es) +
+         (widen ? static_cast<size_t>(2 * kBK) * row_bytes(hd, 2) : 0) +
          q_bytes(G, hd) +
          sizeof(float) * (static_cast<size_t>(G) * kBK + 2 * G) +
          sizeof(__nv_bfloat16) * padded_g(G) * kPStride;
 }
 
 // An upper bound of smem_bytes over G <= kMaxG, hd <= kMaxHd and
-// G * hd <= kMaxOut, in f32.
+// G * hd <= kMaxOut, in f32 (the fp8 ring and its widened tiles take less
+// than the f32 ring).
 size_t max_smem_bytes() {
   return static_cast<size_t>(2 * 2 * kBK) * row_bytes(attn::kMaxHd, 4) +
          static_cast<size_t>(kMaxG) * (2 * attn::kMaxHd + 16) +
@@ -179,19 +238,19 @@ size_t max_smem_bytes() {
 // The mean over the W slots of column d of one kv head's V (rows
 // ``stride`` elements apart), in f32: the output of a row with no valid
 // slot, where every p = exp(0).
-template <typename T>
-__device__ float mean_v(const T* __restrict__ v, size_t stride, int W,
+template <typename KT>
+__device__ float mean_v(const KT* __restrict__ v, size_t stride, int W,
                         int d) {
   float s = 0.f;
   for (int w = 0; w < W; ++w) s += attn::to_f32(v[w * stride + d]);
   return s / static_cast<float>(W);
 }
 
-template <typename T, int kPath>
+template <typename T, typename KT, int kPath>
 __global__ void __launch_bounds__(kThreads, 2)
 decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
-                    const T* __restrict__ k,            // (B, W, KV, hd)
-                    const T* __restrict__ v,            // (B, W, KV, hd)
+                    const KT* __restrict__ k,           // (B, W, KV, hd)
+                    const KT* __restrict__ v,           // (B, W, KV, hd)
                     const uint8_t* __restrict__ valid,  // (W,)
                     T* __restrict__ o,                  // (B, KV, G, hd)
                     float* __restrict__ part_acc,  // (B, KV, n_split, G, hd)
@@ -202,13 +261,18 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
   // kMma: acc[(i kMaxMt + mt) 4 + r] is the r-th C element of row tile mt
   // and column tile warp + kWarps i.
   constexpr int kAcc = kPath == kMma ? 2 * kMaxMt * 4 : kOutPerThread;
+  // fp8 K / V on the tensor cores: staged as fp8, widened to bf16.
+  constexpr bool kWiden = kPath == kMma && sizeof(KT) == 1;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int es = sizeof(T);
-  const int rb = row_bytes(hd, es);
+  const int es = sizeof(KT);
+  const int rbs = row_bytes(hd, es);                // staged rows (bytes)
+  const int rb = kWiden ? row_bytes(hd, 2) : rbs;   // rows the tile reads
   const int Gp = padded_g(G), qs = 2 * hd + 16;   // kMma q rows (bytes)
   uint8_t* sk = smem;                               // 2 stages of K
-  uint8_t* sv = smem + 2 * kBK * rb;                // 2 stages of V
-  uint8_t* sqb = smem + 4 * kBK * rb;               // q: f32 G x hd, or
+  uint8_t* sv = smem + 2 * kBK * rbs;               // 2 stages of V
+  uint8_t* wk = smem + 4 * kBK * rbs;               // kWiden: bf16 K, V
+  uint8_t* wv = wk + kBK * rb;
+  uint8_t* sqb = kWiden ? wv + kBK * rb : wk;       // q: f32 G x hd, or
   float* sq = reinterpret_cast<float*>(sqb);        // bf16 Gp x qs bytes
   float* sp = reinterpret_cast<float*>(sqb + q_bytes(G, hd));  // G x kBK
   __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(sp + G * kBK);
@@ -257,10 +321,10 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
   for (int j = 0; j < kAcc; ++j) acc[j] = 0.f;
 
   auto issue = [&](int t, int stage) {
-    load_tile<T>(sk + stage * kBK * rb, k + base, stride, t * kBK, W, hd, rb,
-                 kPath == kMma);
-    load_tile<T>(sv + stage * kBK * rb, v + base, stride, t * kBK, W, hd, rb,
-                 kPath == kMma);
+    load_tile<KT>(sk + stage * kBK * rbs, k + base, stride, t * kBK, W, hd,
+                  rbs, kPath == kMma);
+    load_tile<KT>(sv + stage * kBK * rbs, v + base, stride, t * kBK, W, hd,
+                  rbs, kPath == kMma);
   };
 
   int t_cur = next_valid(valid, pre, t_begin, t_begin, t_end, W);
@@ -277,8 +341,15 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
   while (t_cur < t_end) {
     cp_async_wait_older();
     __syncthreads();   // this stage's tile (and q, sl at first) is in
-    const uint8_t* kt = sk + stage * kBK * rb;
-    const uint8_t* vt = sv + stage * kBK * rb;
+    const uint8_t* kt = sk + stage * kBK * rbs;
+    const uint8_t* vt = sv + stage * kBK * rbs;
+    if constexpr (kWiden) {
+      widen_tile<KT>(wk, kt, hd, rb, rbs);
+      widen_tile<KT>(wv, vt, hd, rb, rbs);
+      __syncthreads();
+      kt = wk;
+      vt = wv;
+    }
     const int w0 = t_cur * kBK;
 
     // Raw scores q . k of the warp's heads (w, w + kWarps, ...) at slots
@@ -325,8 +396,8 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
     } else {
       // Lane owns slots lane and lane + 32 and widens each element of
       // their K rows once for all the warp's heads.
-      const T* k0 = reinterpret_cast<const T*>(kt + lane * rb);
-      const T* k1 = reinterpret_cast<const T*>(kt + (lane + 32) * rb);
+      const KT* k0 = reinterpret_cast<const KT*>(kt + lane * rb);
+      const KT* k1 = reinterpret_cast<const KT*>(kt + (lane + 32) * rb);
       for (int d = 0; d < hd; ++d) {
         const float a = attn::to_f32(k0[d]), c = attn::to_f32(k1[d]);
 #pragma unroll
@@ -416,7 +487,7 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
 #pragma unroll 4
           for (int c = 0; c < kBK; ++c)
             a = fmaf(pg[c],
-                     attn::to_f32(*reinterpret_cast<const T*>(vcol + c * rb)),
+                     attn::to_f32(*reinterpret_cast<const KT*>(vcol + c * rb)),
                      a);
           acc[j] = a;
         }
@@ -494,11 +565,11 @@ decode_split_kernel(const T* __restrict__ q,            // (B, KV, G, hd)
 constexpr int kCombineThreads = 128;   // >= hd
 constexpr int kMaxSplit = 1024;
 
-template <typename T>
+template <typename T, typename KT>
 __global__ void __launch_bounds__(kCombineThreads)
 decode_combine_kernel(const float* __restrict__ part_acc,
                       const float* __restrict__ part_ml,
-                      const T* __restrict__ v,   // (B, W, KV, hd)
+                      const KT* __restrict__ v,   // (B, W, KV, hd)
                       T* __restrict__ o, int W, int KV, int G, int hd,
                       int n_split) {
   __shared__ float sm[kMaxSplit], sw[kMaxSplit];
@@ -539,64 +610,96 @@ decode_combine_kernel(const float* __restrict__ part_acc,
       attn::from_f32<T>(a / fmaxf(L, attn::kMinDenom));
 }
 
-template <typename T>
+template <typename T, typename KT>
 int launch(const void* q, const void* k, const void* v, const void* valid,
            void* o, void* part_acc, void* part_ml, int B, int W, int KV,
            int G, int hd, int n_split, int tiles_per_split, float scale,
            cudaStream_t stream) {
   // Set once per instantiation, at the most any (G, hd) it takes needs.
-  // The tensor-core path exists for bf16 only.
-  using Kernel = decltype(&decode_split_kernel<T, kFma>);
-  constexpr bool kHasMma = sizeof(T) == 2;
+  // The tensor-core path exists for bf16 q with bf16 or fp8 K / V.
+  using Kernel = decltype(&decode_split_kernel<T, KT, kFma>);
+  constexpr bool kHasMma = sizeof(T) == 2 && sizeof(KT) <= 2;
   static const int attr = [] {
     const int bytes = static_cast<int>(max_smem_bytes());
     const auto a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-    int err = cudaFuncSetAttribute(decode_split_kernel<T, kFma>, a, bytes);
+    int err = cudaFuncSetAttribute(decode_split_kernel<T, KT, kFma>, a, bytes);
     if constexpr (kHasMma)
-      if (!err) err = cudaFuncSetAttribute(decode_split_kernel<T, kMma>, a,
-                                           bytes);
+      if (!err)
+        err = cudaFuncSetAttribute(decode_split_kernel<T, KT, kMma>, a, bytes);
     return err;
   }();
   if (attr) return attr;
   // kMma stages K / V by 16-byte cp.async copies: rows of hd % 16 == 0
-  // bf16 on 16-byte aligned bases.
-  Kernel kernel = decode_split_kernel<T, kFma>;
+  // elements (bf16 or fp8) on 16-byte aligned bases.
+  Kernel kernel = decode_split_kernel<T, KT, kFma>;
+  bool mma = false;
   if constexpr (kHasMma)
     if (hd % 16 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-        reinterpret_cast<uintptr_t>(v) % 16 == 0)
-      kernel = decode_split_kernel<T, kMma>;
-  kernel<<<dim3(n_split, KV, B), kThreads, smem_bytes(G, hd, sizeof(T)),
-           stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const uint8_t*>(valid),
+        reinterpret_cast<uintptr_t>(v) % 16 == 0) {
+      kernel = decode_split_kernel<T, KT, kMma>;
+      mma = true;
+    }
+  const size_t smem =
+      smem_bytes(G, hd, sizeof(KT), mma && sizeof(KT) == 1);
+  kernel<<<dim3(n_split, KV, B), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const uint8_t*>(valid),
       static_cast<T*>(o), static_cast<float*>(part_acc),
       static_cast<float*>(part_ml), W, KV, G, hd, tiles_per_split, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return static_cast<int>(err);
-  decode_combine_kernel<T><<<dim3(G, KV, B), kCombineThreads, 0,
-                                    stream>>>(
+  decode_combine_kernel<T, KT><<<dim3(G, KV, B), kCombineThreads, 0,
+                                 stream>>>(
       static_cast<const float*>(part_acc), static_cast<const float*>(part_ml),
-      static_cast<const T*>(v), static_cast<T*>(o), W, KV, G, hd, n_split);
+      static_cast<const KT*>(v), static_cast<T*>(o), W, KV, G, hd, n_split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// q / out of type T, K / V of the cache's type (`kv_dtype`).
+template <typename T>
+int launch_kv(int kv_dtype, const void* q, const void* k, const void* v,
+              const void* valid, void* o, void* part_acc, void* part_ml,
+              int B, int W, int KV, int G, int hd, int n_split,
+              int tiles_per_split, float scale, cudaStream_t st) {
+  switch (kv_dtype) {
+    case attn::kF8E4M3:
+      return launch<T, __nv_fp8_e4m3>(q, k, v, valid, o, part_acc, part_ml,
+                                      B, W, KV, G, hd, n_split,
+                                      tiles_per_split, scale, st);
+    case attn::kF8E5M2:
+      return launch<T, __nv_fp8_e5m2>(q, k, v, valid, o, part_acc, part_ml,
+                                      B, W, KV, G, hd, n_split,
+                                      tiles_per_split, scale, st);
+    default:
+      return launch<T, T>(q, k, v, valid, o, part_acc, part_ml, B, W, KV, G,
+                          hd, n_split, tiles_per_split, scale, st);
+  }
 }
 
 }  // namespace
 
+// `dtype`: q's and the output's type (attn::kF32 / kBF16); `kv_dtype`: the
+// cache's, that same type or an fp8 format (attn::kF8E4M3 / kF8E5M2).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* valid,
                                        void* o, void* part_acc, void* part_ml,
                                        int B, int W, int KV, int G, int hd,
                                        int n_split, int tiles_per_split,
-                                       float scale, int dtype, void* stream) {
+                                       float scale, int dtype, int kv_dtype,
+                                       void* stream) {
   if (B == 0 || KV == 0 || G == 0) return 0;
   if (n_split < 1 || n_split > kMaxSplit || tiles_per_split < 1 ||
       static_cast<long long>(n_split) * tiles_per_split < (W + kBK - 1) / kBK)
     return static_cast<int>(cudaErrorInvalidValue);
+  if ((dtype != attn::kF32 && dtype != attn::kBF16) ||
+      (kv_dtype != dtype && kv_dtype != attn::kF8E4M3 &&
+       kv_dtype != attn::kF8E5M2))
+    return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == attn::kBF16)
-    return launch<__nv_bfloat16>(q, k, v, valid, o, part_acc, part_ml, B, W,
-                                 KV, G, hd, n_split, tiles_per_split, scale,
-                                 st);
-  return launch<float>(q, k, v, valid, o, part_acc, part_ml, B, W, KV, G, hd,
-                       n_split, tiles_per_split, scale, st);
+    return launch_kv<__nv_bfloat16>(kv_dtype, q, k, v, valid, o, part_acc,
+                                    part_ml, B, W, KV, G, hd, n_split,
+                                    tiles_per_split, scale, st);
+  return launch_kv<float>(kv_dtype, q, k, v, valid, o, part_acc, part_ml, B,
+                          W, KV, G, hd, n_split, tiles_per_split, scale, st);
 }

@@ -5,7 +5,8 @@ Pass 1, ``decode_split_kernel``, grid (n_split, KV, B): each block takes
 a contiguous run of 64-slot tiles for the G query heads of one kv head
 and writes a partial (m, l, acc). Pass 2, ``decode_combine_kernel``,
 grid (G, KV, B), merges the partials; with n_split = 1 pass 1 writes the
-output and pass 2 is not launched.
+output and pass 2 is not launched. K / V are of q's dtype or fp8
+(``KV_DTYPES``), read as they are: the kernels widen fp8 on the card.
 """
 from __future__ import annotations
 
@@ -19,6 +20,9 @@ from repro_torch.kernels.flash_attention.kernel import DTYPES
 TILE = 64          # cache slots per tile (csrc/decode_attention.cu kBK)
 MAX_SPLIT = 1024   # splits the combine takes (kMaxSplit)
 WAVES = 2          # blocks aimed at per SM when B * KV is small
+# The cache dtypes the kernels read (the C entry point's kv_dtype code):
+# q's own, or either fp8 format.
+KV_DTYPES = {**DTYPES, torch.float8_e4m3fn: 2, torch.float8_e5m2: 3}
 
 
 def split_plan(B: int, W: int, KV: int, n_sm: int) -> tuple[int, int]:
@@ -43,8 +47,8 @@ def decode_attention_bkv(q, k_cache, v_cache, valid, out, part_acc, part_ml,
                          *, n_split: int, tiles_per_split: int,
                          scale: float) -> None:
     """Attention of one token into ``out`` (B, 1, H, hd) on the current
-    stream. q (B, 1, H, hd), k/v (B, W, KV, hd) of one dtype and valid
-    (W,) bool are checked, contiguous CUDA tensors
+    stream. q (B, 1, H, hd), k/v (B, W, KV, hd) of q's dtype or fp8 and
+    valid (W,) bool are checked, contiguous CUDA tensors
     (``ops.decode_attention``); with n_split > 1, ``part_acc`` (B, KV,
     n_split, G, hd) and ``part_ml`` (B, KV, n_split, G, 2) are f32
     workspaces, else None."""
@@ -56,6 +60,7 @@ def decode_attention_bkv(q, k_cache, v_cache, valid, out, part_acc, part_ml,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         valid.data_ptr(), out.data_ptr(), *ws, B, W, KV, H // KV, hd,
         n_split, tiles_per_split, scale, DTYPES[q.dtype],
+        KV_DTYPES[k_cache.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: CUDA error {err}")

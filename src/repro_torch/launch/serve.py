@@ -16,7 +16,9 @@ deepseek-67b. ``--arch`` takes any of the ten ids of
 ``repro_torch.configs.ARCH_IDS``; whisper-medium's prefill needs encoder
 frames that ``ServedModel.generate`` does not pass, so a request routed
 to it raises ``ValueError`` (the JAX driver fails there too).
-``--dry-run`` is not ported yet and raises ``NotImplementedError``.
+``--dry-run`` runs ``python -m repro_torch.launch.dryrun`` for each arm
+at ``--shape`` (default ``decode_32k``), as the JAX driver does: the FULL
+configs traced on ``meta`` tensors, nothing allocated, no card needed.
 """
 from __future__ import annotations
 
@@ -44,16 +46,22 @@ def main(argv=None):
     ap.add_argument("--prom", action="store_true",
                     help="print the Prometheus telemetry scrape")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower the FULL decode configs (not ported yet: "
-                    "raises NotImplementedError)")
+                    help="dry-run the FULL configs at --shape "
+                    "(launch/dryrun, on meta tensors)")
     ap.add_argument("--shape", default="decode_32k")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the router and the models")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run needs launch/dryrun, which is not ported yet")
+        import subprocess
+        import sys
+        rc = 0
+        for arch in args.arch or DEFAULT_ARCHS:
+            rc |= subprocess.call([
+                sys.executable, "-m", "repro_torch.launch.dryrun",
+                "--arch", arch, "--shape", args.shape])
+        raise SystemExit(rc)
 
     import numpy as np
 

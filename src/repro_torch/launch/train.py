@@ -6,8 +6,9 @@ f32 master weights from seed 0, AdamW under a warmup-cosine schedule
 (warmup a tenth of ``--steps``), no remat, the ``chunked`` route. Runs on
 ``--device`` (default ``cuda``; ``cpu`` runs the same step on the CPU).
 ``--ckpt PATH`` saves the final ``TrainState`` in the JAX package's
-checkpoint format. ``--dry-run`` needs launch/dryrun, which is not ported
-yet, and raises ``NotImplementedError``.
+checkpoint format. ``--dry-run`` runs ``python -m
+repro_torch.launch.dryrun --arch <id> --shape train_4k``, as the JAX
+driver does: the FULL config's train step traced on ``meta`` tensors.
 """
 from __future__ import annotations
 
@@ -26,16 +27,19 @@ def main(argv=None):
     ap.add_argument("--full", action="store_true",
                     help="use the FULL config (a card required)")
     ap.add_argument("--dry-run", action="store_true",
-                    help="lower-only on the production mesh (not ported "
-                    "yet: raises NotImplementedError)")
+                    help="dry-run the FULL config at train_4k "
+                    "(launch/dryrun, on meta tensors)")
     ap.add_argument("--ckpt", default="")
     ap.add_argument("--device", default="cuda",
                     help="torch device of the model and the optimizer")
     args = ap.parse_args(argv)
 
     if args.dry_run:
-        raise NotImplementedError(
-            "--dry-run needs launch/dryrun, which is not ported yet")
+        import subprocess
+        import sys
+        raise SystemExit(subprocess.call([
+            sys.executable, "-m", "repro_torch.launch.dryrun",
+            "--arch", args.arch, "--shape", "train_4k"]))
 
     import torch
 

@@ -18,9 +18,11 @@ so the card's route is the kernel. Decode's plain routes are ``chunked``
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -111,6 +113,16 @@ def _fit_block(n: int, b: int) -> int:
     return b
 
 
+def _block_probs(q32: Tensor, kx: Tensor, msk: Tensor, m_run: Tensor,
+                 scale: float):
+    """One block's unnormalised probabilities p (B, H, q_block, kv_block)
+    and the running max after it."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q32, kx) * scale
+    s = torch.where(msk, s, NEG_INF)
+    m_new = torch.maximum(m_run, s.amax(-1))
+    return torch.exp(s - m_new[..., None]), m_new
+
+
 def chunked_attention(
     q: Tensor, k: Tensor, v: Tensor, q_pos: Tensor, k_pos: Tensor,
     mode: str = "causal", window: int = 0,
@@ -118,13 +130,20 @@ def chunked_attention(
 ) -> Tensor:
     """Online-softmax attention over query blocks and key/value blocks,
     every block visited and the invalid ones masked, as in the JAX
-    package."""
+    package. Under autograd a block's scores are recomputed in the
+    backward, as the JAX package's ``jax.checkpoint`` on its key/value
+    step does: its backward recomputes each block's scores and
+    probabilities, and no other product."""
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
     q_block = _fit_block(S, q_block)
     kv_block = _fit_block(T, kv_block)
     scale = 1.0 / float(hd) ** 0.5
+    probs = _block_probs
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad):
+        probs = functools.partial(torch.utils.checkpoint.checkpoint,
+                                  _block_probs, use_reentrant=False)
     outs = []
     for i in range(0, S, q_block):
         q32 = q[:, i:i + q_block].float()
@@ -135,11 +154,8 @@ def chunked_attention(
         for j in range(0, T, kv_block):
             kx = _expand_kv(k[:, j:j + kv_block], G).float()
             vx = _expand_kv(v[:, j:j + kv_block], G).float()
-            s = torch.einsum("bqhd,bkhd->bhqk", q32, kx) * scale
             msk = _mask(mode, qp, k_pos[j:j + kv_block], window)
-            s = torch.where(msk, s, NEG_INF)
-            m_new = torch.maximum(m_run, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
+            p, m_new = probs(q32, kx, msk, m_run, scale)
             corr = torch.exp(m_run - m_new)
             l_run = l_run * corr + p.sum(-1)
             acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd",
@@ -240,8 +256,8 @@ def decode_attention(
     q = layers.apply_rope(q, posb, cfg.rope_theta)
     k_new = layers.apply_rope(k_new, posb, cfg.rope_theta)
     slot = pos % W
-    k_cache[:, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v_new[:, 0].to(v_cache.dtype)
+    k_cache[:, slot] = layers.astype(k_new[:, 0], k_cache.dtype)
+    v_cache[:, slot] = layers.astype(v_new[:, 0], v_cache.dtype)
     valid = ring_valid(pos, W, cfg.window, x.device)
     if impl == "cuda":
         from repro_torch.kernels.decode_attention import ops as da_ops
@@ -284,8 +300,10 @@ def _masked_decode(q, k_cache, v_cache, valid, kv_block):
     l_run = torch.zeros((B, H), device=q.device)
     acc = torch.zeros((B, H, hd), device=q.device)
     for j in range(0, W, kv_block):
-        kx = _expand_kv(k_cache[:, j:j + kv_block], G).float()
-        vx = _expand_kv(v_cache[:, j:j + kv_block], G).float()
+        # Widened before the repeat (exact either way), so that an fp8
+        # cache needs no index kernel of its dtype.
+        kx = _expand_kv(k_cache[:, j:j + kv_block].float(), G)
+        vx = _expand_kv(v_cache[:, j:j + kv_block].float(), G)
         s = torch.einsum("bhd,bkhd->bhk", q32, kx) * scale
         s = torch.where(valid[j:j + kv_block], s, NEG_INF)
         m_new = torch.maximum(m_run, s.amax(-1))

@@ -13,6 +13,10 @@ from typing import Optional, Tuple
 
 import torch
 
+# The decode caches' dtypes: the compute dtypes and the two fp8 formats
+# (the dry-run's ``--kv-dtype``).
+KV_DTYPES = ("float32", "bfloat16", "float8_e4m3fn", "float8_e5m2")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -74,7 +78,13 @@ class ModelConfig:
 
     @property
     def kv_torch_dtype(self) -> torch.dtype:
-        return getattr(torch, self.kv_dtype or self.dtype)
+        """The decode caches' dtype: one of ``KV_DTYPES``, else
+        ValueError."""
+        name = self.kv_dtype or self.dtype
+        if name not in KV_DTYPES:
+            raise ValueError(f"{self.name}: kv_dtype {name!r} is not one of "
+                             f"{KV_DTYPES}")
+        return getattr(torch, name)
 
     @property
     def ssm_d_inner(self) -> int:

@@ -66,6 +66,39 @@ def layer_norm(x: Tensor, weight: Optional[Tensor], bias: Optional[Tensor],
     return y.to(x.dtype)
 
 
+# ---------------------------------------------------------------------------
+# casts into a cache of another dtype
+# ---------------------------------------------------------------------------
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+# e4m3fn's largest finite value is 448; XLA rounds to it up to the tie
+# with the next step (480), 464, and gives NaN past that.
+_E4M3_EDGE = 464.0
+
+
+def astype(x: Tensor, dtype: torch.dtype) -> Tensor:
+    """``x`` in ``dtype`` with the bits of the JAX package's
+    ``x.astype(dtype)`` for f32 and bf16 sources. For fp8 targets torch's
+    ``.to()`` differs from XLA's convert in two places, mended here: an
+    e4m3fn target gives NaN (the sign kept) where |x| > 464 or x is
+    infinite, where torch saturates to ±448; an e5m2 target encodes NaN
+    as XLA does, 0x7E with the sign from f32 and 0x7F from bf16, where
+    torch gives 0x7F with the sign. Every other value has the same bits
+    either way (round to nearest even, subnormals kept)."""
+    if x.dtype == dtype:
+        return x
+    y = x.to(dtype)
+    if dtype not in FP8_DTYPES:
+        return y
+    sign = torch.signbit(x).to(torch.uint8) << 7
+    if dtype == torch.float8_e4m3fn:
+        fix, nan = ~(x.abs() <= _E4M3_EDGE), sign | 0x7F
+    else:
+        fix = torch.isnan(x)
+        nan = sign | 0x7E if x.dtype == torch.float32 else 0x7F
+    return torch.where(fix, nan, y.view(torch.uint8)).view(dtype)
+
+
 def init_norm(cfg_norm: str, d: int, *, device, dtype=torch.float32,
               lead: tuple = ()):
     if cfg_norm == "nonparametric":

@@ -23,11 +23,13 @@ kernel for it either).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
@@ -98,6 +100,39 @@ def _project_xBC(p, x: Tensor) -> Tensor:
                       x @ p["wC"].to(dt_)], dim=-1)
 
 
+def _outer(a: Tensor, b: Tensor) -> Tensor:
+    """The outer product of a's and b's last axes over their shared
+    leading axes, (..., m) x (..., n) -> (..., m, n), as a batched product
+    with a depth of 1. It is what the JAX package's einsums compute for
+    their products without a summed axis (a ``dot_general``), and its
+    value is the elementwise product's."""
+    lead = a.shape[:-1]
+    return torch.bmm(a.reshape(-1, a.shape[-1], 1),
+                     b.reshape(-1, 1, b.shape[-1])).reshape(
+        lead + (a.shape[-1], b.shape[-1]))
+
+
+def _chunk_step(x32, dtq, A, Bq, Cq, h, tri):
+    """One chunk of ``ssd_chunked``: the intra-chunk mixing matrix M
+    (B, Q, Q, H), the carried state's share of y (B, Q, H, P) and the
+    state after the chunk. Under autograd it runs under a checkpoint, as
+    the JAX package's chunk step does (``jax.checkpoint``): the backward
+    recomputes the products it needs here (C.B, the state's share of y,
+    the state's input) and stops before the state's update, which comes
+    last; the intra-chunk product of M and x runs outside."""
+    cum = torch.cumsum(dtq * A, dim=1)                      # inclusive
+    seg = cum[:, :, None, :] - cum[:, None, :, :]           # (B,Q,Q,H)
+    Ldec = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
+    CB = torch.einsum("bin,bjn->bij", Cq, Bq)               # (B,Q,Q)
+    M = CB[..., None] * Ldec * dtq[:, None, :, :]           # (B,Q,Q,H)
+    y_inter = torch.einsum("bin,bhnp->bihp", Cq, h)
+    y_inter = y_inter * torch.exp(cum)[..., None]
+    decay_to_end = torch.exp(cum[:, -1:, :] - cum)          # (B,Q,H)
+    wx = _outer((decay_to_end * dtq)[..., None], x32)[..., 0, :]
+    h = h * torch.exp(cum[:, -1])[:, :, None, None]
+    return M, y_inter, h + torch.einsum("bjn,bjhp->bhnp", Bq, wx)
+
+
 def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
                 C_in: Tensor, D_skip: Tensor, chunk: int,
                 h0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
@@ -125,26 +160,19 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
          if h0 is None else h0.to(f32))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))[None, :, :, None]
+    step = _chunk_step
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, dt, A, B_in, C_in, h)):
+        step = functools.partial(torch.utils.checkpoint.checkpoint,
+                                 _chunk_step, use_reentrant=False)
     ys = []
     for c0 in range(0, L, chunk):
         sl = slice(c0, c0 + chunk)
         x32 = x[:, sl].to(f32)                              # (B,Q,H,P)
-        dtq = dt[:, sl].to(f32)                             # (B,Q,H)
-        Bq = B_in[:, sl].to(f32)                            # (B,Q,N)
-        Cq = C_in[:, sl].to(f32)
-        cum = torch.cumsum(dtq * A, dim=1)                  # inclusive
-        seg = cum[:, :, None, :] - cum[:, None, :, :]       # (B,Q,Q,H)
-        Ldec = torch.where(tri, torch.exp(torch.where(tri, seg, 0.0)), 0.0)
-        CB = torch.einsum("bin,bjn->bij", Cq, Bq)           # (B,Q,Q)
-        M = CB[..., None] * Ldec * dtq[:, None, :, :]       # (B,Q,Q,H)
+        M, y_inter, h = step(x32, dt[:, sl].to(f32), A, B_in[:, sl].to(f32),
+                             C_in[:, sl].to(f32), h, tri)
         y_intra = torch.einsum("bijh,bjhp->bihp", M, x32)
-        y_inter = torch.einsum("bin,bhnp->bihp", Cq, h)
-        y_inter = y_inter * torch.exp(cum)[..., None]
         y = y_intra + y_inter + x32 * D_skip[None, None, :, None]
-        decay_to_end = torch.exp(cum[:, -1:, :] - cum)      # (B,Q,H)
-        h = h * torch.exp(cum[:, -1])[:, :, None, None]
-        h = h + torch.einsum("bjn,bjh,bjhp->bhnp", Bq, decay_to_end * dtq,
-                             x32)
         ys.append(y.to(x.dtype))
     return torch.cat(ys, dim=1), h
 
@@ -213,6 +241,13 @@ def mamba2_decode(p, cfg: ModelConfig, x: Tensor,
     dt_ = x.dtype
     d_in, N, H, P = (cfg.ssm_d_inner, cfg.ssm_state, cfg.ssm_heads,
                      cfg.ssm_head_dim)
+    if state.conv.dtype in layers.FP8_DTYPES:
+        # The JAX package concatenates the conv state with the new column
+        # and fp8 does not promote there: a TypePromotionError, which is a
+        # ValueError.
+        raise ValueError(f"{cfg.name}: an SSM conv state in "
+                         f"{state.conv.dtype} does not promote with the "
+                         f"{dt_} input column")
     x0 = x[:, 0]
     z = x0 @ p["wz"].to(dt_)
     xBC_new = _project_xBC(p, x0)                           # (B, d_in + 2N)
@@ -230,8 +265,9 @@ def mamba2_decode(p, cfg: ModelConfig, x: Tensor,
     dt = F.softplus(dt_raw.float() + p["dt_bias"])         # (B, H)
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A)                                  # (B, H)
-    h = state.h * dA[:, :, None, None] + torch.einsum(
-        "bn,bh,bhp->bhnp", B_in.float(), dt, xs)
+    Bdt = _outer(B_in.float(), dt)                           # (B, N, H)
+    h = state.h * dA[:, :, None, None] + _outer(
+        Bdt.transpose(1, 2), xs)
     y = (torch.einsum("bn,bhnp->bhp", C_in.float(), h)
          + xs * p["D"][None, :, None])
     y = y.reshape(Bb, d_in).to(dt_)

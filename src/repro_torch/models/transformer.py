@@ -37,8 +37,14 @@ plain route on the CPU for serving, and ``chunked`` on every device for
 package's Pallas kernels, and its train step runs ``chunked``), so a
 kernel route under autograd raises ``NotImplementedError``. Decode's
 cross-attention is an einsum over the encoder's frames, as in the JAX
-package. KV caches in another dtype than the model's are not ported yet:
-they raise ``NotImplementedError``.
+package.
+
+KV caches may be of another dtype than the model's (``cfg.kv_dtype``,
+fp8 included): ``init_caches`` allocates them so, ``prefill`` and
+``decode_step`` write them through ``layers.astype`` (the JAX package's
+cast bits), and attention reads them in the compute dtype. As in the JAX
+package, ``prefill_forward`` builds its caches in the compute dtype, and
+the SSM families' decode raises ``ValueError`` on an fp8 conv state.
 """
 from __future__ import annotations
 
@@ -54,13 +60,6 @@ from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
 
 Tensor = torch.Tensor
-
-
-def _check_ported(cfg: ModelConfig) -> None:
-    if cfg.kv_dtype and cfg.kv_dtype != cfg.dtype:
-        raise NotImplementedError(
-            f"{cfg.name}: kv_dtype={cfg.kv_dtype!r} (a KV cache in another "
-            "dtype than the model's) is not ported yet")
 
 
 def _need_frames(cfg: ModelConfig, frames: Optional[Tensor]) -> None:
@@ -126,10 +125,13 @@ def init_model(cfg: ModelConfig, *, seed: int = 0, device=None,
     drawn from a generator on ``device`` seeded with ``seed``. ``dtype``
     is the storage dtype: f32 master weights as in the JAX package, or
     the config's compute dtype for serving, which gives the values JAX's
-    cast at use gives."""
-    _check_ported(cfg)
+    cast at use gives. On ``device="meta"`` the tree has the real one's
+    shapes and dtypes and nothing is drawn or allocated (the counterpart
+    of ``jax.eval_shape`` over JAX's ``init_model``)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    # A meta tensor takes no draw, and there is no generator on meta.
+    gen = torch.Generator(
+        device="cpu" if device.type == "meta" else device).manual_seed(seed)
     kw = dict(device=device, dtype=dtype)
     D = cfg.d_model
     n = stack_sizes(cfg)
@@ -175,6 +177,18 @@ def _layer(tree, i: int):
     """Layer ``i`` of a stacked parameter tree."""
     return {k: _layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in tree.items()}
+
+
+def _unstack(tree, n: int) -> list:
+    """The ``n`` per-layer trees of a stacked tree, by one ``unbind`` a
+    leaf. Its backward stacks the layers' gradients once, as the JAX
+    package's scan does; ``_layer``'s select per layer would build a
+    zero gradient of the whole stack for each layer and add them up, work
+    and memory quadratic in the depth."""
+    if not isinstance(tree, dict):
+        return list(torch.unbind(tree))
+    parts = {k: _unstack(v, n) for k, v in tree.items()}
+    return [{k: parts[k][i] for k in tree} for i in range(n)]
 
 
 def _embed(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
@@ -248,31 +262,31 @@ def _run_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
     stack's (k, v), the secondary stack's (the hybrid's shared-block
     applications, the interleaved dense layers), the SSM states."""
     kv, shared, states, auxs = [], [], [], []
-    blocks = params["blocks"]
+    n = stack_sizes(cfg)
+    blocks = _unstack(params["blocks"], n["blocks"])
     kind = cfg.arch_type
     attn_blk = _maybe_remat(_apply_attn_block_kv, remat)
     if kind in ("dense", "vlm", "audio"):
         for i in range(cfg.num_layers):
-            x, kv_i = attn_blk(_layer(blocks, i), cfg, x, positions, impl,
-                               enc)
+            x, kv_i = attn_blk(blocks[i], cfg, x, positions, impl, enc)
             kv.append(kv_i)
     elif kind == "moe":
         moe_blk = _maybe_remat(_apply_moe_block_kv, remat)
         per = cfg.moe_every - 1
-        for g in range(stack_sizes(cfg)["blocks"]):
+        dense = (_unstack(params["dense_blocks"], n["dense_blocks"])
+                 if per else [])
+        for g in range(n["blocks"]):
             for j in range(per):
-                x, kv_i = attn_blk(
-                    _layer(params["dense_blocks"], g * per + j), cfg, x,
-                    positions, impl)
-                shared.append(kv_i)
-            x, kv_i, aux = moe_blk(_layer(blocks, g), cfg, x, positions,
+                x, kv_i = attn_blk(dense[g * per + j], cfg, x, positions,
                                    impl)
+                shared.append(kv_i)
+            x, kv_i, aux = moe_blk(blocks[g], cfg, x, positions, impl)
             kv.append(kv_i)
             auxs.append(aux)
     elif kind in ("ssm", "hybrid"):
         ssm_blk = _maybe_remat(_apply_ssm_block, remat)
         for i in range(cfg.num_layers):
-            x, st = ssm_blk(_layer(blocks, i), cfg, x, impl)
+            x, st = ssm_blk(blocks[i], cfg, x, impl)
             states.append(st)
             if kind == "hybrid" and (i + 1) % cfg.shared_attn_every == 0:
                 x, kv_i = attn_blk(params["shared_attn"], cfg, x, positions,
@@ -290,7 +304,6 @@ def decoder_stack(params, cfg: ModelConfig, x: Tensor, positions: Tensor,
                   enc_positions=None, remat: bool = False):
     """The decoder blocks over a full sequence. Returns (x, aux); aux is
     the mean MoE load-balance loss, 0 for the other families."""
-    _check_ported(cfg)
     enc = None if enc_out is None else (enc_out, enc_positions)
     x, aux, _, _, _ = _run_stack(params, cfg, x, positions, impl, enc,
                                  remat)
@@ -305,9 +318,8 @@ def encoder_stack(params, cfg: ModelConfig, frames: Tensor,
     x = frames @ params["frontend_proj"].to(frames.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     blk = _maybe_remat(_apply_attn_block_kv, remat)
-    for i in range(cfg.encoder_layers):
-        x, _ = blk(_layer(params["encoder_blocks"], i), cfg, x, positions,
-                   impl, mode="full")
+    for p in _unstack(params["encoder_blocks"], cfg.encoder_layers):
+        x, _ = blk(p, cfg, x, positions, impl, mode="full")
     return layers.apply_norm(cfg.norm, params["enc_final_norm"], x)
 
 
@@ -459,8 +471,9 @@ def cache_window(cfg: ModelConfig, seq_len: int) -> int:
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
                 enc_seq: int = 0, device=None) -> DecodeCaches:
     """Zero caches for ``batch`` rows of ``seq_len`` positions (and
-    ``enc_seq`` encoder frames for the encoder-decoder family)."""
-    _check_ported(cfg)
+    ``enc_seq`` encoder frames for the encoder-decoder family), in
+    ``cfg.kv_torch_dtype`` but for the SSM state ``ssm_h``, which is
+    f32."""
     kw = dict(dtype=cfg.kv_torch_dtype, device=resolve_device(device))
     kinds = cfg.layer_kinds()
     if cfg.arch_type == "moe" and cfg.moe_every > 1:
@@ -580,7 +593,6 @@ def decode_step(params, cfg: ModelConfig, token: Tensor,
                 caches: DecodeCaches, impl: Optional[str] = None):
     """One serve step: token (B, 1) -> f32 logits (B, V), caches (updated
     in place, ``pos`` advanced)."""
-    _check_ported(cfg)
     x = _decode_layers(params, cfg, _embed(params, cfg, token), caches, impl)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x[:, 0]), caches._replace(pos=caches.pos + 1)
@@ -615,7 +627,10 @@ def prefill(params, cfg: ModelConfig, tokens: Tensor, *,
                          device=tokens.device)
     dt = cfg.torch_dtype
     if cfg.is_encdec:
-        enc_out = encoder_stack(params, cfg, encoder_frames.to(dt), impl)
+        # ``einsum`` is a decode route only; the encoder then runs the JAX
+        # package's default, ``chunked``.
+        enc_out = encoder_stack(params, cfg, encoder_frames.to(dt),
+                                "chunked" if impl == "einsum" else impl)
         caches = caches._replace(**_cross_kv(params, cfg, enc_out))
     if frontend is not None:
         fe = frontend.to(dt) @ params["frontend_proj"].to(dt)
@@ -639,8 +654,9 @@ def prefill_forward(params, cfg: ModelConfig, tokens: Tensor, *,
     and states, the secondary stack, the cross K/V) and the last token's
     f32 logits (B, V). ``frontend`` (B, F, frontend_dim) is put before the
     text (VLM); ``encoder_frames`` (B, T, frontend_dim) feed the encoder
-    (encoder-decoder, which raises ValueError without them)."""
-    _check_ported(cfg)
+    (encoder-decoder, which raises ValueError without them). The caches
+    are in the compute dtype whatever ``cfg.kv_dtype`` says, as the JAX
+    package's are."""
     x = _embed(params, cfg, tokens)
     dt = x.dtype
     enc = None

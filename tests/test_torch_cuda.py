@@ -538,6 +538,7 @@ def test_decode_kernel_without_valid_slot(dev, dtype, B, W, H, KV, hd):
 
 
 BF16, F32 = torch.bfloat16, torch.float32
+E4M3, E5M2 = torch.float8_e4m3fn, torch.float8_e5m2
 SSD_TOL = {BF16: 0.08, F32: 2e-4}   # the JAX SSD tests' bars
 
 
@@ -860,3 +861,101 @@ def test_train_refuses_kernel_route_on_card(dev):
     with pytest.raises(NotImplementedError, match="no backward"):
         forward_train(p, cfg, {"tokens": toks, "labels": toks}, impl="cuda")
     assert flash_ops.LAUNCHES[0] == n
+
+
+# The fp8 cases of chip_smoke.py phase 15 (a): (B, W, H, KV, hd, q dtype,
+# cache dtype, pos, window); pos None is a row with no valid slot.
+FP8_DECODE_CASES = [
+    (1, 40, 16, 16, 128, BF16, E4M3, 39, 0),        # olmo-1b's token
+    (1, 4096, 64, 8, 128, BF16, E4M3, 5000, 3000),  # 32 splits
+    (1, 40, 32, 32, 80, BF16, E4M3, 39, 0),         # zamba2-2.7b's hd
+    (1, 616, 32, 32, 96, BF16, E4M3, 615, 0),       # phi-3-vision's hd
+    (2, 40, 8, 2, 32, torch.float32, E4M3, 35, 0),  # f32 q: the FMA path
+    (2, 136, 8, 2, 128, BF16, E5M2, 130, 0),
+    (1, 40, 4, 2, 36, BF16, E4M3, 33, 0),           # bf16 off the mma path
+    (1, 1024, 16, 2, 128, BF16, E4M3, None, 0),     # no valid slot
+]
+
+
+@pytest.mark.parametrize("B,W,H,KV,hd,dtype,kv_dtype,pos,window",
+                         FP8_DECODE_CASES)
+def test_decode_kernel_reads_fp8_cache(dev, B, W, H, KV, hd, dtype, kv_dtype,
+                                       pos, window):
+    """The kernels on an fp8 cache: bit for bit what they give on the cache
+    cast to q's dtype (the widening is exact), through the op and at one
+    split and one split per tile, and within the attention bar of the
+    plain version; the launch reaches the kernel with the fp8 cache."""
+    from repro_torch.kernels.decode_attention import ops as da_ops
+    from repro_torch.kernels.decode_attention.kernel import (
+        TILE, decode_attention_bkv,
+    )
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.attention import ring_valid
+    from repro_torch.models.layers import astype
+
+    g = torch.Generator(device=dev).manual_seed(W + hd)
+    q = torch.randn((B, 1, H, hd), generator=g, device=dev, dtype=dtype)
+    kc, vc = (astype(torch.randn((B, W, KV, hd), generator=g, device=dev)
+                     * 2, kv_dtype) for _ in range(2))
+    valid = (torch.zeros(W, dtype=torch.bool, device=dev) if pos is None
+             else ring_valid(pos, W, window, dev))
+    n = da_ops.LAUNCHES[0]
+    got = da_ops.decode_attention(q, kc, vc, valid)
+    up = da_ops.decode_attention(q, kc.to(dtype), vc.to(dtype), valid)
+    assert da_ops.LAUNCHES[0] == n + 2
+    assert torch.equal(got, up)
+    assert_attn_close(got, decode_attention_ref(q, kc, vc, valid), dtype)
+    tiles = -(-W // TILE)
+    G = H // KV
+    for n_split, per in ((1, tiles), (tiles, 1)):
+        ws = (None, None)
+        if n_split > 1:
+            ws = (torch.empty((B, KV, n_split, G, hd), device=dev),
+                  torch.empty((B, KV, n_split, G, 2), device=dev))
+        outs = []
+        for k, v in ((kc, vc), (kc.to(dtype), vc.to(dtype))):
+            out = torch.empty_like(q)
+            decode_attention_bkv(q, k, v, valid, out, *ws, n_split=n_split,
+                                 tiles_per_split=per, scale=1.0 / hd ** 0.5)
+            outs.append(out)
+        assert torch.equal(outs[0], outs[1])
+
+
+def test_decode_kernel_refuses_mixed_cache(dev):
+    from repro_torch.kernels.decode_attention import ops as da_ops
+
+    q = torch.zeros((1, 1, 4, 64), device=dev, dtype=BF16)
+    kc = torch.zeros((1, 8, 4, 64), device=dev)
+    with pytest.raises(TypeError, match="cache"):
+        da_ops.decode_attention(q, kc, kc, torch.ones(8, dtype=torch.bool,
+                                                      device=dev))
+
+
+@pytest.mark.parametrize("arch,kv_dtype", [("olmo-1b", "float8_e4m3fn"),
+                                           ("dbrx-132b", "float8_e5m2")])
+def test_fp8_decode_on_card_matches_cpu(dev, arch, kv_dtype):
+    """An fp8-cache SMOKE model (f32) on the card through the kernels
+    against the CPU's plain route: token-by-token prefill and 3 decode
+    steps, logits within 1e-4 and the fp8 caches within one fp8 step."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import decode_step, init_model, prefill
+
+    cfg = dataclasses.replace(configs.get_smoke(arch), kv_dtype=kv_dtype)
+    p = init_model(cfg, seed=0, device="cpu")
+    pc = torch.utils._pytree.tree_map(lambda t: t.to(dev), p)
+    toks = torch.randint(2, cfg.vocab_size, (1, 12),
+                         generator=torch.Generator().manual_seed(1))
+    runs = []
+    for d, params in (("cpu", p), (dev, pc)):
+        logits, c = prefill(params, cfg, toks.to(d), cache_len=16)
+        assert c.k.dtype == getattr(torch, kv_dtype)
+        out = [logits.cpu()]
+        for t in (5, 9, 11):
+            logits, c = decode_step(params, cfg,
+                                    torch.full((1, 1), t, device=d), c)
+            out.append(logits.cpu())
+        runs.append((torch.stack(out), c.k.cpu().view(torch.uint8)))
+    torch.testing.assert_close(runs[1][0], runs[0][0], rtol=1e-4, atol=1e-4)
+    assert int((runs[1][1].int() - runs[0][1].int()).abs().max()) <= 1

@@ -250,12 +250,14 @@ def test_prefill_forward_matches_token_by_token(name):
     ("dense", dict(kv_dtype="float8_e4m3fn")),
 ])
 def test_unported_families_raise(arch_type, extra):
-    """A KV cache in another dtype than the model's (fp8) is not ported;
-    every family is (``tests/test_torch_zoo.py``)."""
+    """Every family and fp8 KV caches are ported (``tests/test_torch_zoo.py``,
+    ``tests/test_torch_fp8.py``): the fp8 config builds its caches in fp8,
+    and a cache dtype outside ``config.KV_DTYPES`` raises."""
     cfg = ModelConfig(name="x", arch_type=arch_type, num_layers=2,
                       d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
                       vocab_size=64, dtype="float32", **extra)
-    with pytest.raises(NotImplementedError):
-        init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        init_caches(cfg, 1, 8, device="cpu")
+    init_model(cfg, device="cpu")
+    assert init_caches(cfg, 1, 8, device="cpu").k.dtype == torch.float8_e4m3fn
+    bad = dataclasses.replace(cfg, kv_dtype="float16")
+    with pytest.raises(ValueError, match="kv_dtype"):
+        init_caches(bad, 1, 8, device="cpu")

@@ -332,7 +332,7 @@ def test_gateway_admission_window_matches_jax(jax_models):
     assert routed[0] == routed[1]
 
 
-def test_serve_driver_on_cpu(capsys, tmp_path):
+def test_serve_driver_on_cpu(capsys, tmp_path, monkeypatch):
     from repro_torch.launch import serve
 
     snap = str(tmp_path / "router")
@@ -345,8 +345,18 @@ def test_serve_driver_on_cpu(capsys, tmp_path):
     assert (tmp_path / "router.manifest.json").exists()
     assert "arm 1: mamba2-370m" in out
     assert "decisions_total 8" in out.replace("paretobandit_", "")
-    with pytest.raises(NotImplementedError):
+    # --dry-run runs the dry run of each arm at --shape, as the JAX
+    # driver does (tests/test_torch_dryrun.py runs it for real).
+    import subprocess
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda cmd: calls.append(cmd[1:]) or 0)
+    with pytest.raises(SystemExit) as ex:
         serve.main(["--dry-run"])
+    assert ex.value.code == 0
+    assert calls == [["-m", "repro_torch.launch.dryrun", "--arch", a,
+                      "--shape", "decode_32k"]
+                     for a in ("olmo-1b", "mamba2-370m", "deepseek-67b")]
 
 
 def test_serve_driver_serves_the_zoo_on_cpu(capsys):

@@ -305,7 +305,7 @@ def test_smoke_train_step(arch):
         tree.leaves(state.params), tree.leaves(new.params))) > 0
 
 
-def test_launch_train_main_on_cpu(tmp_path, capsys):
+def test_launch_train_main_on_cpu(tmp_path, capsys, monkeypatch):
     path = os.path.join(tmp_path, "ckpt.npz")
     state = launch_train.main(["--arch", "olmo-1b", "--steps", "3",
                                "--device", "cpu", "--ckpt", path])
@@ -318,5 +318,14 @@ def test_launch_train_main_on_cpu(tmp_path, capsys):
                     tree.leaves({"p": state.params, "m": state.opt.mu})):
         assert torch.equal(a, w)
     assert int(back.opt.step) == 3
-    with pytest.raises(NotImplementedError, match="dryrun"):
+    # --dry-run runs the dry run at train_4k, as the JAX driver does
+    # (tests/test_torch_dryrun.py runs it for real).
+    import subprocess
+    calls = []
+    monkeypatch.setattr(subprocess, "call",
+                        lambda cmd: calls.append(cmd[1:]) or 0)
+    with pytest.raises(SystemExit) as ex:
         launch_train.main(["--arch", "olmo-1b", "--dry-run"])
+    assert ex.value.code == 0
+    assert calls == [["-m", "repro_torch.launch.dryrun", "--arch", "olmo-1b",
+                      "--shape", "train_4k"]]
