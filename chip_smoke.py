@@ -5,7 +5,9 @@
 
 Builds the CUDA kernels from src/repro_torch/kernels/csrc (into
 build/kernels/ at first use) and lists each kernel's registers and spills
-(a spill in the attention, LinUCB or SSD kernels fails the run), then:
+(a spill in the attention, LinUCB or SSD kernels fails the run, except
+in the scoring kernel's autotune candidates, linucb_score_kernel<DP,
+ROWS> with ROWS other than the main path's 128, which are listed), then:
 
   1. prints the card, its power limit and the torch / CUDA versions, and
      turns TF32 off for matrix products and convolutions;
@@ -173,7 +175,18 @@ build/kernels/ at first use) and lists each kernel's registers and spills
      olmo-1b FULL bf16 held against the card: a decode step at B 8, W
      4,096 on fp8 caches and prefill_forward at (1, 2,048), the arguments'
      bytes equal to the real ones, the predicted peak within 2x of the
-     measured, the least of 5 times at least 0.95 of the bound.
+     measured, the least of 5 times at least 0.95 of the bound;
+ 16. runs the autotune, Eq. 9 and the port's lint suite: (a)
+     kernels/tune.py's autotune_block_r at PERF.md's two linucb_score
+     shapes, each rows-per-block candidate (32, 64, 128, 256) equal bit
+     for bit to the 128-row launch, which meets EQUIV_TOL = 1e-4 against
+     the plain version, its table of graph_ms printed; the scoring
+     kernel's counter is zeroed before and read after (launches_tune);
+     and phase 2's (20, 256, 8, 26) linucb_step block run again on the
+     pdl route, equal to phase 2's result bit for bit; (b)
+     linucb.ucb_variance on the card against the CPU within 1e-6
+     relative; (c) python -m repro_torch.analysis, which must exit 0
+     against analysis_baseline_torch.json.
 
 Prints the script's wall, the kernels JSON line, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -549,6 +562,11 @@ def check_score(rng, S, R, K, d):
                 library_all_graph_ms=library_graph, bound_ms=bms, bound_by=by)
 
 
+# Phase 2's step checks by (S, B, K, d): (operands, the kernel's outputs),
+# for phase 16 to run again.
+STEP_RESULTS = {}
+
+
 def check_step(rng, S, B, K, d):
     """linucb_step against its plain version at (S, B, K, d): arms and
     last_upd identical, statistics / theta / (r, c) within 1e-4 abs +
@@ -600,6 +618,7 @@ def check_step(rng, S, B, K, d):
     got = ops.linucb_step(*ins)
     want = ops.linucb_step(*(v.cpu() for v in ins))
     torch.cuda.synchronize()
+    STEP_RESULTS[(S, B, K, d)] = (ins, tuple(t.clone() for t in got))
     names = ("A", "A_inv", "b", "theta", "last_upd", "arms", "r", "c",
              "lam", "c_ema")
     err = 0.0
@@ -2559,6 +2578,74 @@ def dryrun_phase(params, smi):
     return out
 
 
+def tune_phase(smi):
+    """Phase 16: the autotune at both linucb_score shapes (every candidate
+    bit for bit against the 128-row launch), phase 2's pdl step block
+    again, Eq. 9 on the card against the CPU, and the port's lint suite.
+    Returns (the scoring kernel's launches in the phase, the candidate
+    tables in ms by shape)."""
+    import torch
+
+    from repro_torch.core import linucb
+    from repro_torch.core.backend import EQUIV_TOL
+    from repro_torch.core.types import RouterConfig
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.linucb_score import ops as score_ops
+    from repro_torch.kernels.linucb_score.ref import linucb_score_ref
+    from repro_torch.kernels.linucb_step import ops as step_ops
+
+    # (a) every candidate at both shapes, then the autotune's table.
+    score_ops.LAUNCHES[0] = 0
+    tables = {}
+    for S, R, K, d in tune.SHAPES:
+        args = tune.operands(S, R, K, d, "cuda")
+        base = score_ops.linucb_score(*args)
+        err = float((base - linucb_score_ref(*args)).abs().max())
+        assert err <= EQUIV_TOL, f"linucb_score at {(S, R, K, d)}: {err}"
+        same = {br: torch.equal(score_ops.linucb_score(*args, block_r=br),
+                                base) for br in tune.BLOCK_R_CANDIDATES}
+        assert all(same.values()), f"candidates not bit for bit: {same}"
+        best, table = tune.autotune_block_r(R, d, K, S=S)
+        key = f"S{S}_R{R}_K{K}_d{d}"
+        tables[key] = {br: secs * 1e3 for br, secs in table.items()}
+        print("[tune] " + json.dumps(dict(
+            shape=dict(S=S, R=R, K=K, d=d), max_abs_err_128_vs_plain=err,
+            bitwise_vs_128=same, graph_ms=tables[key], best=best,
+            card=smi)))
+    launches = score_ops.LAUNCHES[0]
+    ins, want = STEP_RESULTS[(20, 256, 8, 26)]
+    got = step_ops.linucb_step(*ins)
+    same = [torch.equal(g, w) for g, w in zip(got, want)]
+    print(f"[tune] linucb_step pdl block (20, 256, 8, 26) again: bit for bit "
+          f"with phase 2 {all(same)}")
+    assert all(same), same
+
+    # (b) Eq. 9 on the card against the CPU.
+    S, d = 20, 26
+    gen = torch.Generator().manual_seed(16)
+    M = torch.randn((S, d, d), generator=gen, dtype=torch.float64)
+    A_inv = torch.linalg.inv(M @ M.transpose(-1, -2) / d
+                             + torch.eye(d, dtype=torch.float64)).float()
+    x = torch.randn((S, d), generator=gen)
+    dt = torch.randint(0, 5000, (S,), generator=gen, dtype=torch.int32)
+    cfg = RouterConfig()
+    v = {dev: linucb.ucb_variance(cfg, cfg.hyper.as_leaves(S, dev),
+                                  A_inv.to(dev), x.to(dev), dt.to(dev)).cpu()
+         for dev in ("cuda", "cpu")}
+    rel = float(((v["cuda"] - v["cpu"]).abs() / v["cpu"].abs()).max())
+    print(f"[tune] ucb_variance S={S} d={d}: card vs CPU max rel diff {rel:.3e}")
+    assert rel <= 1e-6 and torch.isfinite(v["cuda"]).all(), rel
+
+    # (c) the port's lint suite against its committed baseline.
+    lint = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis"], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=SRC), capture_output=True, text=True)
+    print(f"[tune] python -m repro_torch.analysis: exit {lint.returncode}, "
+          f"{lint.stdout.strip().splitlines()[-1]}")
+    assert lint.returncode == 0, lint.stdout + lint.stderr
+    return launches, tables
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -2595,6 +2682,14 @@ def main() -> int:
     spills = [k for k in build_report(build.build_log())
               if k.startswith(("flash_wgmma", "decode_split", "decode_comb",
                                "linucb_", "ssd_"))]
+    # The autotune's other rows-per-block candidates may spill: they run
+    # only when a caller asks for them, and their times are recorded.
+    candidates = [k for k in spills if k.startswith("linucb_score_kernel<")
+                  and not k.endswith(", 128>")]
+    if candidates:
+        print(f"[build] autotune candidates that spill (timed in phase 16): "
+              f"{candidates}")
+    spills = [k for k in spills if k not in candidates]
     assert not spills, f"register spills in {spills}"
 
     # Phase 2: each kernel against its plain version on the card.
@@ -2956,6 +3051,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[fp8] phase wall {time.perf_counter() - t0:.1f} s")
 
+    # Phase 16: the autotune, Eq. 9 and the port's lint suite. The
+    # scoring kernel's counter is zeroed inside tune_phase just before the
+    # candidates run.
+    t0 = time.perf_counter()
+    tune_launches, tune_tables = tune_phase(smi)
+    print(f"[tune] phase wall {time.perf_counter() - t0:.1f} s")
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -2996,6 +3098,8 @@ def main() -> int:
     for k in kernels:
         k["launches_train"] = train_launches[k["name"]]
     kernels[3]["launches_fp8"] = fp8_launches
+    kernels[0]["launches_tune"] = tune_launches
+    kernels[0]["tune_graph_ms"] = tune_tables
     kernels[2]["launches_by_route"] = flash_routes
     kernels[4]["launches_by_route"] = ssd_routes
     print(f"[wall] chip_smoke.py {time.perf_counter() - start:.1f} s, the "

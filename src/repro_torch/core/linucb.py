@@ -63,6 +63,20 @@ def staleness_inflation(cfg: RouterConfig, hp: HyperParams,
                          1.0 / lead(hp.v_max, dt.ndim))
 
 
+def ucb_variance(cfg: RouterConfig, hp: HyperParams, A_inv: Tensor,
+                 x: Tensor, dt: Tensor) -> Tensor:
+    """Eq. 9, the staleness-inflated posterior variance of one arm per
+    state: x^T A^-1 x (clamped at 0 against f32 round-off) over
+    max(gamma^dt, 1/V_max). A_inv (S, d, d), x (S, d), dt (S,) -> (S,).
+
+    The products are ``ucb_scores_batch``'s, on one context and one arm,
+    so the value is its variance term bit for bit on those operands."""
+    X = x[:, None]                                            # (S, 1, d)
+    t = torch.einsum("sbd,skde->sbke", X, A_inv[:, None])
+    quad = torch.clamp_min(torch.einsum("sbke,sbe->sbk", t, X), 0.0)
+    return (quad / staleness_inflation(cfg, hp, dt[:, None])[:, None, :])[:, 0, 0]
+
+
 def ucb_scores_batch(
     cfg: RouterConfig,
     hp: HyperParams,

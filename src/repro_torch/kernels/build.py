@@ -125,7 +125,7 @@ def library() -> ctypes.CDLL:
 def _load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.linucb_score_launch.argtypes = [P] * 7 + [I] * 5 + [P]
+    lib.linucb_score_launch.argtypes = [P] * 7 + [I] * 6 + [P]
     lib.linucb_score_launch.restype = I
     lib.linucb_step_launch.argtypes = [P] * 34 + [I] * 7 + [P]
     lib.linucb_step_launch.restype = I

@@ -2,13 +2,14 @@
 // (a register-tiled product per (row tile, arm, state)), the select rule,
 // and the copy / launch-chaining primitives both use.
 //
-// Scoring, one block per (128-row tile, arm a, state s). The block stages
-// the tile's contexts X (128 x d) and arm a's inverse (d x d) in shared
+// Scoring, one block per (ROWS-row tile, arm a, state s), ROWS = 32, 64,
+// 128 (the default, and the step kernel's) or 256. The block stages
+// the tile's contexts X (ROWS x d) and arm a's inverse (d x d) in shared
 // memory, zero-padded to DP columns (DP = 32, 64 or 128, the smallest
 // that holds d: zeros are exact in every product below), and computes
-// T = X A^-1_a with 256 threads. Thread (g, c), g in [0, 2048 / DP),
+// T = X A^-1_a with 2 ROWS threads. Thread (g, c), g in [0, 16 ROWS / DP),
 // c in [0, DP / 8), holds an M x 8 micro-tile of T in registers, M =
-// DP / 16: rows g + (2048 / DP) i, columns 4c .. 4c + 3 and
+// DP / 16: rows g + (16 ROWS / DP) i, columns 4c .. 4c + 3 and
 // DP / 2 + 4c .. + 3. At DP = 128 every step of 4 along the reduction
 // axis reads 8 float4 of X and 8 of A^-1 for 256 FMAs, so the loop is
 // bound by the FP32 units, not by shared-memory loads; at small d the
@@ -16,7 +17,8 @@
 // The epilogue forms x^T A^-1 x = sum_e T[r, e] x[r, e] and x . theta_a
 // from the registers and reduces them over the DP / 8 lanes of a row
 // group by xor shuffles (a fixed order on every launch), so T never
-// leaves registers.
+// leaves registers. A (row, arm)'s sums run in an order set by DP and
+// kChunk alone, so every ROWS gives the same scores bit for bit.
 //
 // Staging is asynchronous: X and A^-1 go in by cp.async (16-byte copies
 // when d % 4 == 0 and the operands are 16-byte aligned, else 4-byte
@@ -37,18 +39,19 @@ constexpr int kMaxD = 128;
 constexpr int kMaxK = 64;
 constexpr float kNegInf = -1e30f;     // repro/kernels/linucb_step NEG_INF
 
-// The scoring tile: 128 rows, 8 columns a thread, 256 threads.
+// The scoring tile: 128 rows by default (the rows a block takes are a
+// template parameter, ROWS), 8 columns a thread, 2 ROWS threads.
 constexpr int kTileRows = 128;
 constexpr int kMicro = 8;
-constexpr int kScoreThreads = 256;
 constexpr int kChunk = 32;                       // columns per commit group
 
+__host__ __device__ constexpr int score_threads(int rows) { return 2 * rows; }
 __host__ __device__ constexpr int score_ldx(int dp) { return dp + 4; }
 
-// Dynamic shared memory of a scoring block: the X tile (row stride
-// DP + 4 floats), the inverse (DP x DP) and theta_a (DP).
-inline size_t score_smem_bytes(int dp) {
-  return sizeof(float) * (static_cast<size_t>(kTileRows) * score_ldx(dp) +
+// Dynamic shared memory of a scoring block: the X tile (rows x DP + 4
+// floats), the inverse (DP x DP) and theta_a (DP).
+inline size_t score_smem_bytes(int dp, int rows) {
+  return sizeof(float) * (static_cast<size_t>(rows) * score_ldx(dp) +
                           static_cast<size_t>(dp) * dp + dp);
 }
 
@@ -109,13 +112,13 @@ __device__ __forceinline__ int choose_arm(const float* sc, const float* nz,
 
 namespace {
 
-// Eq. 2 for rows [128 bx, 128 bx + 128) of state s against arm a:
+// Eq. 2 for rows [ROWS bx, ROWS bx + ROWS) of state s against arm a:
 // out[(s R + r) K + a] = x_r . theta_a
 //   + alpha_s sqrt(max(x_r^T Ainv_a x_r, 0) / infl_a) - pen_a.
 // x (S, R, d), theta (S, K, d), ainv (S, K, d, d), pen / infl (S, K),
 // alpha (S,), out (S, R, K). vec: 16-byte copies are allowed.
-template <int DP>
-__global__ void __launch_bounds__(kScoreThreads)
+template <int DP, int ROWS>
+__global__ void __launch_bounds__(score_threads(ROWS))
 linucb_score_kernel(const float* __restrict__ x,
                     const float* __restrict__ theta,
                     const float* __restrict__ ainv,
@@ -123,10 +126,10 @@ linucb_score_kernel(const float* __restrict__ x,
                     const float* __restrict__ infl,
                     const float* __restrict__ alpha,
                     float* __restrict__ out, int R, int K, int d, int vec) {
-  constexpr int kT = kScoreThreads;
+  constexpr int kT = score_threads(ROWS);
   constexpr int kCols = DP / kMicro;          // column groups: 4, 8 or 16
   constexpr int kM = DP / 16;                 // rows a thread: 2, 4 or 8
-  constexpr int kRowGroups = kTileRows / kM;  // 64, 32 or 16
+  constexpr int kRowGroups = ROWS / kM;       // at ROWS 128: 64, 32 or 16
   static_assert(kRowGroups * kCols == kT, "one thread per micro-tile");
   constexpr int kLdx = score_ldx(DP);
   constexpr int kGroups = DP / kChunk;        // commit groups: 1, 2 or 4
@@ -135,12 +138,12 @@ linucb_score_kernel(const float* __restrict__ x,
   pdl_launch_dependents();
 
   extern __shared__ __align__(16) float smem[];
-  float* sx = smem;                           // kTileRows x kLdx
-  float* sa = sx + kTileRows * kLdx;          // DP x DP
+  float* sx = smem;                           // ROWS x kLdx
+  float* sa = sx + ROWS * kLdx;               // DP x DP
   float* sth = sa + DP * DP;                  // DP
   const int a = blockIdx.y, s = blockIdx.z;
-  const int row0 = blockIdx.x * kTileRows;
-  const int rows = min(kTileRows, R - row0);
+  const int row0 = blockIdx.x * ROWS;
+  const int rows = min(ROWS, R - row0);
   const int tid = threadIdx.x;
   const float* xs = x + (static_cast<size_t>(s) * R + row0) * d;
   const size_t arm = static_cast<size_t>(s) * K + a;
@@ -149,7 +152,7 @@ linucb_score_kernel(const float* __restrict__ x,
   for (int k = 0; k < kGroups; ++k) {
     const int f0 = k * kChunk;
     if (vec) {
-      for (int i = tid; i < kTileRows * (kChunk / 4); i += kT) {
+      for (int i = tid; i < ROWS * (kChunk / 4); i += kT) {
         const int r = i / (kChunk / 4), col = f0 + 4 * (i % (kChunk / 4));
         const bool ok = r < rows && col < d;
         cp_async16(sx + r * kLdx + col, ok ? xs + r * d + col : x, ok);
@@ -160,7 +163,7 @@ linucb_score_kernel(const float* __restrict__ x,
         cp_async16(sa + f * DP + col, ok ? as + f * d + col : ainv, ok);
       }
     } else {
-      for (int i = tid; i < kTileRows * kChunk; i += kT) {
+      for (int i = tid; i < ROWS * kChunk; i += kT) {
         const int r = i / kChunk, col = f0 + i % kChunk;
         const bool ok = r < rows && col < d;
         cp_async4(sx + r * kLdx + col, ok ? xs + r * d + col : x, ok);
@@ -252,43 +255,47 @@ linucb_score_kernel(const float* __restrict__ x,
   }
 }
 
-// Launches linucb_score_kernel<dp> over grid (R / 128, K, S); dp is 32,
-// 64 or 128 and at least d (kernel.py's score_plan). The shared-memory
-// attribute is set once per instantiation, at its fixed size.
-template <int DP>
+// Launches linucb_score_kernel<DP, ROWS> over grid (R / ROWS, K, S); DP
+// is 32, 64 or 128 and at least d (kernel.py's score_plan). The
+// shared-memory attribute is set once per instantiation, at its fixed
+// size.
+template <int DP, int ROWS>
 int launch_score_dp(const float* x, const float* theta, const float* ainv,
                     const float* pen, const float* infl, const float* alpha,
                     float* out, int S, int R, int K, int d,
                     cudaStream_t stream) {
-  const int smem = static_cast<int>(score_smem_bytes(DP));
+  const int smem = static_cast<int>(score_smem_bytes(DP, ROWS));
   static const int attr = cudaFuncSetAttribute(
-      linucb_score_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      linucb_score_kernel<DP, ROWS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (attr) return attr;
   const bool vec = d % 4 == 0 &&
                    reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(ainv) % 16 == 0;
-  const dim3 grid((R + kTileRows - 1) / kTileRows, K, S);
-  linucb_score_kernel<DP><<<grid, kScoreThreads, smem, stream>>>(
+  const dim3 grid((R + ROWS - 1) / ROWS, K, S);
+  linucb_score_kernel<DP, ROWS><<<grid, score_threads(ROWS), smem, stream>>>(
       x, theta, ainv, pen, infl, alpha, out, R, K, d, vec ? 1 : 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-inline int launch_score(const float* x, const float* theta,
-                        const float* ainv, const float* pen,
-                        const float* infl, const float* alpha, float* out,
-                        int S, int R, int K, int d, int dp,
-                        cudaStream_t stream) {
+// The scoring launch at ROWS rows a block; the step kernel's chained
+// route takes the default.
+template <int ROWS = kTileRows>
+int launch_score(const float* x, const float* theta, const float* ainv,
+                 const float* pen, const float* infl, const float* alpha,
+                 float* out, int S, int R, int K, int d, int dp,
+                 cudaStream_t stream) {
   if (S == 0 || R == 0) return 0;
   if (d < 1 || d > dp || K < 1 || K > kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (dp) {
-    case 32: return launch_score_dp<32>(x, theta, ainv, pen, infl, alpha,
-                                        out, S, R, K, d, stream);
-    case 64: return launch_score_dp<64>(x, theta, ainv, pen, infl, alpha,
-                                        out, S, R, K, d, stream);
-    case 128: return launch_score_dp<128>(x, theta, ainv, pen, infl, alpha,
-                                          out, S, R, K, d, stream);
+    case 32: return launch_score_dp<32, ROWS>(x, theta, ainv, pen, infl,
+                                              alpha, out, S, R, K, d, stream);
+    case 64: return launch_score_dp<64, ROWS>(x, theta, ainv, pen, infl,
+                                              alpha, out, S, R, K, d, stream);
+    case 128: return launch_score_dp<128, ROWS>(x, theta, ainv, pen, infl,
+                                                alpha, out, S, R, K, d,
+                                                stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

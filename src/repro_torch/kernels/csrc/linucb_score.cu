@@ -23,15 +23,48 @@
 // (20, 256, 8, 26) 320 blocks (22 KB each, all resident at once). The
 // wrapper picks DP (kernel.py's score_plan); α is an operand per state
 // (hyper-parameters are data).
+//
+// The rows a block takes are the TPU kernel's block_r knob: `rows` = 32,
+// 64, 128 or 256, with 2 x rows threads. Every choice gives the same
+// scores bit for bit; 128 unless a caller passes another (kernels/tune.py
+// times them).
 #include <cuda_runtime.h>
 
 #include "linucb_common.cuh"
+
+namespace {
+
+// linucb::launch_score at `rows` rows a block, known only at run time: 32,
+// 64, 128 or 256 (kernel.py's BLOCK_ROWS). Only this file instantiates the
+// other rows; the step kernel's file keeps the default.
+int launch_score_rows(const float* x, const float* theta, const float* ainv,
+                      const float* pen, const float* infl, const float* alpha,
+                      float* out, int S, int R, int K, int d, int dp,
+                      int rows, cudaStream_t stream) {
+  switch (rows) {
+    case 32: return linucb::launch_score<32>(x, theta, ainv, pen, infl,
+                                             alpha, out, S, R, K, d, dp,
+                                             stream);
+    case 64: return linucb::launch_score<64>(x, theta, ainv, pen, infl,
+                                             alpha, out, S, R, K, d, dp,
+                                             stream);
+    case 128: return linucb::launch_score<128>(x, theta, ainv, pen, infl,
+                                               alpha, out, S, R, K, d, dp,
+                                               stream);
+    case 256: return linucb::launch_score<256>(x, theta, ainv, pen, infl,
+                                               alpha, out, S, R, K, d, dp,
+                                               stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
 
 extern "C" int linucb_score_launch(const float* x, const float* theta,
                                    const float* ainv, const float* pen,
                                    const float* infl, const float* alpha,
                                    float* out, int S, int R, int K, int d,
-                                   int dp, void* stream) {
-  return linucb::launch_score(x, theta, ainv, pen, infl, alpha, out, S, R,
-                              K, d, dp, static_cast<cudaStream_t>(stream));
+                                   int dp, int rows, void* stream) {
+  return launch_score_rows(x, theta, ainv, pen, infl, alpha, out, S, R, K,
+                           d, dp, rows, static_cast<cudaStream_t>(stream));
 }

@@ -30,7 +30,7 @@ def flash_attention(q, k, v, *, mode: str = "causal", window: int = 0):
     return _launch(q, k, v, mode, window)
 
 
-def _launch(q, k, v, mode, window):
+def _launch(q, k, v, mode: str, window: int):
     """The CUDA path: check the operands, allocate the output, launch the
     kernel on the current stream and count the launch. The kernels mask
     ragged query and key tiles themselves, so nothing is padded."""

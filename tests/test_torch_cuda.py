@@ -397,6 +397,71 @@ def test_linucb_kernels_above_the_grid_limit(dev, B):
         for sl in (slice(0, cut), slice(cut, S))]))
 
 
+@pytest.mark.parametrize("S,R,K,d", [
+    # PERF.md's two linucb_score shapes, then ragged row tiles at every
+    # width and vec off (d % 4 != 0)
+    (20, 256, 8, 26), (1, 4096, 8, 128), (3, 100, 3, 64), (2, 33, 5, 13)])
+def test_score_block_r_candidates_bitwise(dev, S, R, K, d):
+    """Every rows-per-block candidate gives the 128-row launch's scores
+    bit for bit (a (row, arm)'s sums run in an order set by DP alone), and
+    the 128-row launch meets the plain version's tolerance."""
+    from repro_torch.kernels import tune
+
+    args = tune.operands(S, R, K, d, dev)
+    n = score_ops.LAUNCHES[0]
+    base = score_ops.linucb_score(*args)
+    torch.testing.assert_close(base, linucb_score_ref(*args), rtol=2e-4,
+                               atol=2e-5)
+    for br in tune.BLOCK_R_CANDIDATES:
+        assert torch.equal(score_ops.linucb_score(*args, block_r=br), base), br
+    assert score_ops.LAUNCHES[0] == n + 1 + len(tune.BLOCK_R_CANDIDATES)
+
+
+def test_autotune_on_card(dev):
+    from repro_torch.kernels import tune
+
+    best, table = tune.autotune_block_r(256, 26, 8, S=20, repeats=1)
+    assert tuple(table) == tune.BLOCK_R_CANDIDATES and best in table
+    assert all(0 < s < 1 for s in table.values())
+
+
+@pytest.mark.parametrize("S,B,K,d", [(20, 256, 8, 26), (2, 300, 4, 128)])
+def test_step_scores_are_the_score_kernels(dev, S, B, K, d):
+    """The step's chained route scores through the shared header at the
+    default 128 rows: its scores workspace equals the scoring kernel's
+    output at every candidate bit for bit, so the template leaves the
+    step's bits where they were."""
+    from repro_torch.kernels import tune
+    from repro_torch.kernels.linucb_step.kernel import (
+        linucb_step_blocked, scores_workspace,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(d)
+    f = lambda *shape: torch.rand(shape, generator=gen,  # noqa: E731
+                                  device=dev)
+    x, theta, Ainv, pen, infl, alpha = tune.operands(S, B, K, d, dev)
+    A = torch.linalg.inv(Ainv).contiguous()
+    vec = lambda v: torch.full((S,), v, device=dev)  # noqa: E731
+    ins = (A, Ainv, f(S, K, d) - 0.5, theta,
+           torch.zeros((S, K), dtype=torch.int32, device=dev), x,
+           f(S, B, K), f(S, B, K) * 1e-3, f(S, B, K) * 1e-7,
+           torch.ones((S, K), dtype=torch.bool, device=dev), pen, infl,
+           alpha, vec(0.997), vec(0.05), vec(0.05), vec(5.0), vec(0.2),
+           vec(5e-4), vec(6.6e-4),
+           torch.full((S,), 60, dtype=torch.int32, device=dev),
+           torch.zeros((S,), dtype=torch.int32, device=dev),
+           torch.zeros((S, B), dtype=torch.bool, device=dev))
+    outs = tuple(torch.empty_like(t) for t in ins[:5]) + (
+        torch.empty((S, B), dtype=torch.int32, device=dev),
+        torch.empty((S, B), device=dev), torch.empty((S, B), device=dev),
+        torch.empty((S,), device=dev), torch.empty((S,), device=dev))
+    ws = scores_workspace(S, B, K, dev)
+    linucb_step_blocked(ins, outs, ws, num_valid=B, dt_max=4096)
+    for br in tune.BLOCK_R_CANDIDATES:
+        assert torch.equal(ws, score_ops.linucb_score(
+            x, theta, Ainv, pen, infl, alpha, block_r=br)), br
+
+
 ATTN_TOL ={torch.float32: dict(rtol=2e-4, atol=2e-5),
             torch.bfloat16: dict(rtol=5e-2, atol=5e-2)}
 # Each output row's max error against that row's RMS (chip_smoke.py's

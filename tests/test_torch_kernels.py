@@ -322,8 +322,9 @@ def test_score_launch_in_slices_equals_whole(monkeypatch):
     monkeypatch.setattr(checks, "MAX_STATES", 3)
     seen = []
 
-    def fake(x, theta, ainv, pen, infl, alpha, out, states):
+    def fake(x, theta, ainv, pen, infl, alpha, out, states, block_r):
         a, z = states
+        assert block_r == TILE_ROWS
         seen.append(z - a)
         out[a:z] = linucb_score_ref(*(t[a:z] for t in (x, theta, ainv, pen,
                                                         infl, alpha)))
