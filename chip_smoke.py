@@ -187,6 +187,26 @@ ROWS> with ROWS other than the main path's 128, which are listed), then:
      linucb.ucb_variance on the card against the CPU within 1e-6
      relative; (c) python -m repro_torch.analysis, which must exit 0
      against analysis_baseline_torch.json.
+ 17. runs the placement rules (launch/sharding.py, models/pspec.py,
+     launch/mesh.py's production mesh): (a) on an nccl world of one rank
+     with a (1, 1) ("data", "model") mesh on the card, shard_tree places
+     phase 15's olmo-1b FULL bf16 parameters, a TrainState on them (mu
+     and nu drawn at random, under the parameter shardings; step
+     replicated) and bf16 decode caches at B 8, W 4,096 (random) as
+     DTensors: each local tensor equal bit for bit to its source, each
+     placement what the rules give; then pspec.hint redistributes an
+     activation on the card; (b) fake worlds of 256 and then 512 ranks:
+     make_production_mesh with multi_pod off and on, and the rules for
+     olmo-1b, deepseek-67b and dbrx-132b FULL (meta tensors) under tp /
+     fsdp / dp, every leaf's shard shape times its placements' mesh
+     sizes equal to its global shape, with each one's f32 parameter bytes
+     per device printed; and where fsdp's embed keeps ("data", "model")
+     (deepseek-67b, dbrx-132b), every rank's local shape and offset as
+     this torch's DTensor computes them equal to the (data, model) index
+     flattened major to minor, as JAX flattens the tuple. (a) shows that
+     the rules can be applied on the card; (b)'s offsets are the check of
+     their multi-axis semantics. Each process group is destroyed before
+     the next.
 
 Prints the script's wall, the kernels JSON line, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -2646,6 +2666,208 @@ def tune_phase(smi):
     return launches, tables
 
 
+def _same_bits(got, want) -> bool:
+    """Equal dtype, shape and bits (a float read as the integer of its
+    width, so -0.0 and 0.0 differ)."""
+    import torch
+
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.is_floating_point():
+        got = got.contiguous().view(ints[got.element_size()])
+        want = want.contiguous().view(ints[want.element_size()])
+    return torch.equal(got, want)
+
+
+def _placed_bit_for_bit(placed, source, shardings, what):
+    """Every tensor leaf of ``placed`` (a tree as shard_tree gives) a
+    DTensor with its sharding's placements whose local tensor is
+    ``source``'s bit for bit; returns the leaves checked."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import tree
+
+    n = 0
+    for p, s, ns in zip(tree.leaves(placed), tree.leaves(source),
+                        tree.leaves(shardings)):
+        assert isinstance(p, DTensor), what
+        assert p.placements == ns.placements, (what, p.placements,
+                                               ns.placements)
+        assert _same_bits(p.to_local(), s), what
+        n += 1
+    return n
+
+
+def _embed_offsets_major_to_minor(mesh, ns, shape, arch) -> int:
+    """Where fsdp's embed keeps P(("data", "model"), None): every rank's
+    local shape and global offset under its placements, as this torch's
+    DTensor computes them, equal to the rules' shard shape and to the
+    offset of the rank's (data, model) index flattened major to minor,
+    as JAX flattens the tuple (a pod index leaves it unchanged). Returns
+    the ranks checked, 0 where the vocabulary does not divide."""
+    import itertools
+
+    from torch.distributed.tensor._utils import (
+        _compute_local_shape_and_global_offset,
+    )
+
+    if ns.spec != (("data", "model"), None):
+        return 0
+    names = tuple(mesh.mesh_dim_names)
+    di, mi = names.index("data"), names.index("model")
+    n_model = mesh.shape[mi]
+    local = ns.shard_shape(shape)
+    n = 0
+    for coord in itertools.product(*(range(k) for k in mesh.shape)):
+        got = _compute_local_shape_and_global_offset(
+            tuple(shape), tuple(mesh.shape), list(coord), ns.placements)
+        want = (tuple(local),
+                ((coord[di] * n_model + coord[mi]) * local[0], 0))
+        assert tuple(map(tuple, got)) == want, (arch, coord, got, want)
+        n += 1
+    return n
+
+
+def placement_phase(params, smi):
+    """Phase 17: the placement rules. (a) olmo-1b FULL's bf16 parameters,
+    a TrainState on them and decode caches placed as DTensors on a one-rank
+    nccl world's (1, 1) mesh on the card, and pspec.hint there; (b) the
+    production meshes on fake worlds of 256 and 512 ranks, the rules for
+    three architectures under each profile, every shard shape tiling its
+    global shape."""
+    import math
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import (DTensor, Replicate, Shard,
+                                          distribute_tensor)
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch import configs, tree
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import sharding
+    from repro_torch.models import init_caches, init_model, pspec
+    from repro_torch.training.train_step import train_state_init
+
+    # (a) A one-rank nccl world on the card.
+    t0 = time.perf_counter()
+    cfg = configs.get_config("olmo-1b")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        sh = sharding.tree_param_shardings(mesh, params)
+        n_params = _placed_bit_for_bit(
+            sharding.shard_tree(params, sh), params, sh, "params")
+        assert n_params == len(list(tree.leaves(params)))
+        assert sh["blocks"]["attn"]["w_q"].placements == (Replicate(),
+                                                          Shard(2))
+
+        state = train_state_init(params)
+        for m in (state.opt.mu, state.opt.nu):
+            for leaf in tree.leaves(m):
+                leaf.normal_(generator=gen)
+        rep = sharding.NamedSharding(mesh, sharding.P())
+        state_sh = type(state)(params=sh, opt=type(state.opt)(
+            step=rep, mu=sh, nu=sh))
+        placed = sharding.shard_tree(state, state_sh)
+        assert placed.opt.step.placements == (Replicate(), Replicate())
+        assert _same_bits(placed.opt.step.to_local(), state.opt.step)
+        n_state = sum(_placed_bit_for_bit(getattr(placed.opt, k),
+                                          getattr(state.opt, k), sh, k)
+                      for k in ("mu", "nu"))
+        del placed, state
+
+        caches = init_caches(cfg, 8, 4096, device="cuda")
+        for v in caches:
+            if isinstance(v, torch.Tensor):
+                v.copy_(torch.randn(v.shape, generator=gen, device="cuda"))
+        token = torch.randint(0, cfg.vocab_size, (8, 1), generator=gen,
+                              device="cuda", dtype=torch.int32)
+        tok_s, caches_s = sharding.cache_shardings(mesh, cfg, token, caches)
+        placed = sharding.shard_tree(caches, caches_s)
+        assert placed.pos == caches.pos
+        n_caches = _placed_bit_for_bit(
+            {"k": placed.k, "v": placed.v}, {"k": caches.k, "v": caches.v},
+            {"k": caches_s.k, "v": caches_s.v}, "caches")
+        n_caches += _placed_bit_for_bit(
+            {"t": sharding.shard_tree(token, tok_s)}, {"t": token},
+            {"t": tok_s}, "token")
+        assert caches_s.k.placements == (Shard(1), Shard(2))
+        del placed, caches
+
+        pspec.set_mesh(mesh, sharding.activation_hint_specs(mesh))
+        try:
+            h = torch.randn((8, 16, cfg.d_model), generator=gen,
+                            device="cuda", dtype=torch.bfloat16)
+            y = pspec.hint(distribute_tensor(h, mesh, [Replicate()] * 2),
+                           "logits")
+            assert isinstance(y, DTensor)
+            assert y.placements == (Shard(0), Shard(2)), y.placements
+            assert _same_bits(y.to_local(), h)
+        finally:
+            pspec.set_mesh(None)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"[place] (a) nccl world of 1, (1, 1) mesh on cuda: olmo-1b FULL "
+          f"bf16 {n_params} parameter leaves, {n_state} moment leaves (step "
+          f"replicated), {n_caches} cache / token leaves at B 8 W 4096 "
+          f"placed bit for bit with the rules' placements; pspec.hint "
+          f"logits -> {y.placements}; {time.perf_counter() - t0:.1f} s")
+
+    # (b) The production meshes on fake worlds, the rules at full width.
+    t0 = time.perf_counter()
+    n_ranks = 0
+    for multi_pod, world in ((False, 256), (True, 512)):
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=world)
+        try:
+            mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+            assert math.prod(mesh.shape) == world, mesh
+            for arch in ("olmo-1b", "deepseek-67b", "dbrx-132b"):
+                meta = init_model(configs.get_config(arch), device="meta")
+                total = sum(t.numel() * t.element_size()
+                            for t in tree.leaves(meta))
+                for profile in ("tp", "fsdp", "dp"):
+                    per_device = 0
+                    shard = sharding.tree_param_shardings(mesh, meta, profile)
+                    for (path, ns), t in zip(tree.leaves_with_path(shard),
+                                             tree.leaves(meta)):
+                        parts = [1] * t.dim()
+                        for size, pl in zip(mesh.shape, ns.placements):
+                            if isinstance(pl, Shard):
+                                parts[pl.dim] *= size
+                        local = ns.shard_shape(t.shape)
+                        assert tuple(n * k for n, k in zip(local, parts)) \
+                            == tuple(t.shape), (arch, profile, path)
+                        per_device += math.prod(local) * t.element_size()
+                    if profile == "fsdp":
+                        n_ranks += _embed_offsets_major_to_minor(
+                            mesh, shard["embed"], meta["embed"].shape, arch)
+                    print("[place] " + json.dumps(dict(
+                        mesh=dict(zip(mesh.mesh_dim_names, mesh.shape)),
+                        arch=arch, profile=profile,
+                        f32_param_bytes_per_device=per_device,
+                        f32_param_bytes=total, card=smi)))
+        finally:
+            dist.destroy_process_group()
+    # deepseek-67b's and dbrx-132b's vocabularies divide 256, so their
+    # fsdp embeds keep ("data", "model") on both meshes: 2 x (256 + 512).
+    assert n_ranks == 2 * (256 + 512), n_ranks
+    print(f"[place] (b) fake worlds of 256 and 512: every shard shape tiles "
+          f"its global shape; fsdp's (\"data\", \"model\") embed at "
+          f"{n_ranks} (arch, rank) pairs, each rank's local shape and offset "
+          f"as the axes flatten major to minor; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     start = time.perf_counter()
     try:
@@ -3047,7 +3269,6 @@ def main() -> int:
         print(f"[kernel] {json.dumps(c)}")
     fp8_params, fp8_launches = fp8_path(stream)
     dryrun_phase(fp8_params, smi)
-    del fp8_params
     torch.cuda.empty_cache()
     print(f"[fp8] phase wall {time.perf_counter() - t0:.1f} s")
 
@@ -3057,6 +3278,14 @@ def main() -> int:
     t0 = time.perf_counter()
     tune_launches, tune_tables = tune_phase(smi)
     print(f"[tune] phase wall {time.perf_counter() - t0:.1f} s")
+
+    # Phase 17: the placement rules, on phase 15's parameters. They launch
+    # none of the five kernels.
+    t0 = time.perf_counter()
+    placement_phase(fp8_params, smi)
+    del fp8_params
+    torch.cuda.empty_cache()
+    print(f"[place] phase wall {time.perf_counter() - t0:.1f} s")
 
     def entry(name, source, replaces, checks, n):
         main = checks[0]

@@ -1,17 +1,57 @@
-"""Device meshes for the sweep fabric's grid split.
+"""Device meshes: the production mesh and the sweep fabric's grid split.
+
+The production mesh is a ``torch.distributed`` ``DeviceMesh`` of 16 x 16
+= 256 ranks on ``("data", "model")``, or of 2 x 16 x 16 = 512 on
+``("pod", "data", "model")``, the JAX package's shapes and axis names.
+It is built over a world that the caller has initialised, as JAX's is
+built over the devices the runtime already has.
 
 The JAX package shards a grid's flattened (condition x seed) axis over a
-1-D ``grid`` mesh. Here a mesh is the tuple of devices that take a part:
-each device runs one contiguous part of the state stack from its own
-thread, and the parts are joined on the host. Nothing is touched at
-import time.
+1-D ``grid`` mesh. Here a grid mesh is the tuple of devices that take a
+part: each device runs one contiguous part of the state stack from its
+own thread, and the parts are joined on the host.
+
+Every mesh is made by a function, so importing this module touches no
+device and no process group.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.partition import axis_sizes, data_axis_names
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """16x16 = 256 ranks per pod; 2 pods = 512 ranks when ``multi_pod``.
+
+    The mesh takes the world's first 256 (512) ranks, as ``jax.make_mesh``
+    takes the first devices. It needs that world to be initialised
+    already (``torch.distributed.init_process_group``); without one, or
+    with fewer ranks, it raises ValueError rather than wait on a
+    rendezvous or build a smaller mesh."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = math.prod(shape)
+    have = (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 0)
+    if have < need:
+        raise ValueError(
+            f"the production mesh {shape} on {axes} needs an initialised "
+            f"world of {need} ranks; the world has {have}")
+    return init_device_mesh("cuda", shape, mesh_dim_names=axes)
+
+
+def data_parallel_size(mesh) -> int:
+    """The product of the data axes' sizes."""
+    sizes = axis_sizes(mesh)
+    return math.prod(sizes[n] for n in data_axis_names(mesh))
 
 
 def make_grid_mesh(n: int, devices: Optional[Sequence] = None

@@ -16,6 +16,26 @@ def leaves(tree) -> Iterator[Any]:
         yield tree
 
 
+def leaves_with_path(tree, path: tuple = ()) -> Iterator[tuple]:
+    """``(path, leaf)`` for the leaves of ``tree`` in ``leaves`` order,
+    ``path`` the tuple of keys from the root (the JAX package's path
+    names)."""
+    if isinstance(tree, Mapping):
+        for k in sorted(tree):
+            yield from leaves_with_path(tree[k], path + (str(k),))
+    else:
+        yield path, tree
+
+
+def map_with_path(fn: Callable, tree, path: tuple = ()):
+    """``fn(path, leaf)`` over the leaves of ``tree``, as a tree of its
+    structure; ``path`` as ``leaves_with_path`` gives it."""
+    if isinstance(tree, Mapping):
+        return {k: map_with_path(fn, v, path + (str(k),))
+                for k, v in tree.items()}
+    return fn(path, tree)
+
+
 def map_tree(fn: Callable, tree, *rest):
     """``fn`` over the leaves of ``tree`` and of the trees of its structure
     in ``rest``, as a tree of ``tree``'s structure."""
