@@ -207,6 +207,18 @@ ROWS> with ROWS other than the main path's 128, which are listed), then:
      the rules can be applied on the card; (b)'s offsets are the check of
      their multi-axis semantics. Each process group is destroyed before
      the next.
+ 18. runs the dry run on the production mesh without collectives
+     (launch/dryrun.py, collectives=False: --skip-collectives) on meta
+     tensors, in the fake world of 512 ranks it starts and destroys
+     itself: olmo-1b and mamba2-370m x decode_32k on 16 x 16 (tp) and
+     dbrx-132b x decode_32k on 2 x 16 x 16 with the experts on 'data'.
+     Each one's per-device argument bytes, read from the local shards of
+     this torch's DTensor trace, must equal the shard-shape sum of its
+     placed arguments, and olmo-1b's and mamba2-370m's XLA's
+     (2,441,674,788 and 365,081,764); collectives {} and
+     wire bytes 0. Prints the trace seconds and the temp bytes (`[mesh]`);
+     the five kernels' counters are zeroed before the phase and must read
+     0 after it.
 
 Prints the script's wall, the kernels JSON line, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -2746,6 +2758,7 @@ def placement_phase(params, smi):
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     from repro_torch import configs, tree
+    from repro_torch.launch import dryrun
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import sharding
     from repro_torch.models import init_caches, init_model, pspec
@@ -2772,9 +2785,7 @@ def placement_phase(params, smi):
         for m in (state.opt.mu, state.opt.nu):
             for leaf in tree.leaves(m):
                 leaf.normal_(generator=gen)
-        rep = sharding.NamedSharding(mesh, sharding.P())
-        state_sh = type(state)(params=sh, opt=type(state.opt)(
-            step=rep, mu=sh, nu=sh))
+        state_sh = dryrun._state_shardings(mesh, sh)
         placed = sharding.shard_tree(state, state_sh)
         assert placed.opt.step.placements == (Replicate(), Replicate())
         assert _same_bits(placed.opt.step.to_local(), state.opt.step)
@@ -2866,6 +2877,66 @@ def placement_phase(params, smi):
           f"{n_ranks} (arch, rank) pairs, each rank's local shape and offset "
           f"as the axes flatten major to minor; "
           f"{time.perf_counter() - t0:.1f} s")
+
+
+# Phase 18's combos: (arch, shape, multi_pod, profile, ep_axis). The
+# first two are ones the JAX reference compiles, whose XLA argument bytes
+# per device (its dry run's memory_analysis() on JAX 0.9.0's CPU) the
+# port must give exactly; the second runs the SSM decode step, whose
+# partial residual stream this torch cannot combine with a sharded
+# operand unless it is completed first (pspec.reduced); the third
+# reaches the MoE hints, the out-of-place scatter and the expert axis on
+# 'data' on the multi-pod mesh.
+MESH_DRYRUN = (("olmo-1b", "decode_32k", False, "tp", "model"),
+               ("mamba2-370m", "decode_32k", False, "tp", "model"),
+               ("dbrx-132b", "decode_32k", True, "tp", "data"))
+# XLA's argument_size_in_bytes of the JAX dry run of the same combos on
+# the 16 x 16 mesh (JAX 0.9.0 on the CPU, --skip-collectives).
+XLA_ARGUMENT_BYTES = {"olmo-1b": 2_441_674_788, "mamba2-370m": 365_081_764}
+
+
+def mesh_dryrun_phase(smi):
+    """Phase 18: the dry run on the production mesh without collectives
+    (--skip-collectives), in the fake world of 512 ranks it starts itself:
+    each combo's per-device argument bytes, read from the DTensor trace's
+    local shards on this torch, must equal the shard-shape sum of its
+    placed arguments (and, for olmo-1b and mamba2-370m, XLA's). Returns
+    the results."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import INPUT_SHAPES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    assert not dist.is_initialized(), "phase 17 left a process group"
+    out = []
+    for arch, shape, multi_pod, profile, ep_axis in MESH_DRYRUN:
+        r = dryrun.lower_combo(arch, shape, multi_pod=multi_pod,
+                               collectives=False, profile=profile,
+                               ep_axis=ep_axis, verbose=False)
+        assert not dist.is_initialized(), "the dry run left its world"
+        with dryrun._world(dryrun.FAKE_WORLD):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            want = dryrun.argument_bytes(configs.get_config(arch),
+                                         INPUT_SHAPES[shape], mesh,
+                                         profile=profile, ep_axis=ep_axis)
+        m = r["memory"]
+        assert m["argument_bytes"] == want, (arch, m["argument_bytes"], want)
+        if arch in XLA_ARGUMENT_BYTES:
+            assert want == XLA_ARGUMENT_BYTES[arch], (arch, want)
+        assert r["collectives"] == {} and r["wire_bytes_per_device"] == 0.0
+        print("[mesh] " + json.dumps(dict(
+            arch=arch, shape=shape, mesh=r["mesh"], n_chips=r["n_chips"],
+            profile=profile, ep_axis=ep_axis,
+            argument_bytes=m["argument_bytes"], shard_sum=want,
+            output_bytes=m["output_bytes"], temp_bytes=m["temp_bytes"],
+            flops_per_device=r["flops_per_device"],
+            trace_s=round(r["trace_s"], 3),
+            mesh_trace_s=round(r["mesh_trace_s"], 3), card=smi)))
+        out.append(r)
+    assert not dist.is_initialized()
+    return out
 
 
 def main() -> int:
@@ -3287,6 +3358,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[place] phase wall {time.perf_counter() - t0:.1f} s")
 
+    # Phase 18: the dry run on the production mesh, on meta tensors. The
+    # five kernels' counters are zeroed just before it and read just
+    # after: the dry run launches none.
+    for mod in train_ops.values():
+        mod.LAUNCHES[0] = 0
+    t0 = time.perf_counter()
+    mesh_dryrun_phase(smi)
+    mesh_launches = {k: mod.LAUNCHES[0] for k, mod in train_ops.items()}
+    print(f"[mesh] phase wall {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches {mesh_launches}")
+    assert not any(mesh_launches.values()), mesh_launches
+
     def entry(name, source, replaces, checks, n):
         main = checks[0]
         return dict(name=name, route="cuda", source=source,
@@ -3326,6 +3409,7 @@ def main() -> int:
         k["launches_tenants"] = tenant_launches[k["name"]]
     for k in kernels:
         k["launches_train"] = train_launches[k["name"]]
+        k["launches_mesh_dryrun"] = mesh_launches[k["name"]]
     kernels[3]["launches_fp8"] = fp8_launches
     kernels[0]["launches_tune"] = tune_launches
     kernels[0]["tune_graph_ms"] = tune_tables

@@ -40,6 +40,12 @@ HOT_PATH_ROOTS: Dict[str, Union[str, Tuple[str, ...]]] = {
     "repro_torch.models.transformer": ("decode_step", "prefill"),
     # every kernel wrapper
     "repro_torch.kernels.*.ops": PUBLIC,
+    # the gateway's per-block routing and the learner's per-tick fold
+    "repro_torch.serving.gateway": ("RouterGateway.route_block",
+                                    "RouterGateway.learn_tick"),
+    # one training step: the step make_train_step returns is a local def
+    # of it, hot with it
+    "repro_torch.training.train_step": ("make_train_step",),
 }
 
 # Memoising decorators, as resolved through the module's imports.

@@ -10,6 +10,10 @@ token, and the launches behind it go out one at a time.
   JB02  ``float(x)`` / ``int(x)`` / ``bool(x)`` on a tensor-tainted value
   JB03  ``np.asarray(x)`` / ``np.array(x)`` on a tensor-tainted value
   JB04  Python ``for`` iteration over a tensor-tainted value
+  JB05  a tensor-tainted value where Python wants a bool: the test of
+        ``if`` / ``elif`` / ``while`` / ``assert`` / a conditional
+        expression / a comprehension's ``if``, and the operands of
+        ``and`` / ``or`` / ``not`` (``if t.any():``, ``while x.sum() > 0:``)
 
 Taint is intraprocedural and deliberately simple: a function's own
 parameters (less the config and structure names, and those annotated
@@ -18,6 +22,19 @@ taint flows through assignments. ``.shape`` / ``.dtype`` / ``.ndim`` /
 ``.device`` / ``len()`` and the tensor's other host metadata are host
 values and never tainted. On the CPU none of these syncs costs
 anything; on the card each is a wait.
+
+JB05 has no twin in the JAX package's pass: a traced value in a Python
+condition raises at trace time there, while torch calls ``bool()`` on
+the tensor and blocks silently. A comparison is tainted when an operand
+is, except ``is`` / ``is not`` (an identity test, never a sync): host
+metadata is never tainted, so ``x.shape[0] > n`` is clean and
+``x.sum() > x.shape[0]`` is not. A host parameter compared with a
+string (``impl == "cuda"``) is annotated ``str``, and so is the return of
+a function of the module that gives one; a string literal's membership
+(``"b_q" in p``) is a mapping's key, since no tensor holds a string.
+Parameters annotated
+``Optional`` of a host type, and those named ``*_dtype``, are host
+values for every rule.
 """
 from __future__ import annotations
 
@@ -35,11 +52,15 @@ _STATIC_PARAMS = {
     "self", "cls", "cfg", "config", "statics", "spec", "env", "backend",
     "batch_size", "device", "dtype", "block_r",
 }
-# Parameter annotations of host values.
+# Parameter annotations of host values (also as ``Optional[...]``).
 _HOST_ANNOTATIONS = {"int", "float", "bool", "str", "bytes", "dict",
-                     "torch.device", "torch.dtype"}
+                     "tuple", "torch.device", "torch.dtype"}
 
-_UNTAINT_ATTRS = {"shape", "dtype", "ndim", "device", "is_cuda"}
+_UNTAINT_ATTRS = {"shape", "dtype", "ndim", "device", "is_cuda",
+                  "requires_grad", "placements", "device_mesh"}
+# torch functions that answer a host question.
+_HOST_TORCH_CALLS = {"torch.cuda.is_available", "torch.cuda.device_count",
+                     "torch.is_grad_enabled", "torch.is_tensor"}
 # Tensor methods that return host metadata.
 _HOST_METHODS = {"size", "dim", "numel", "stride", "data_ptr",
                  "element_size", "is_contiguous", "get_device"}
@@ -48,11 +69,19 @@ _HOST_CALLS = {"len", "range", "isinstance", "hasattr", "getattr",
 _SYNC_METHODS = {"item", "tolist", "cpu", "numpy"}
 
 
+def _host_annotation(ann: ast.AST) -> bool:
+    if isinstance(ann, ast.Subscript) and dotted(ann.value) in (
+            "Optional", "typing.Optional"):
+        ann = ann.slice
+    return dotted(ann) in _HOST_ANNOTATIONS
+
+
 def _taint_set(fn: FunctionInfo) -> Set[str]:
     out = set()
     for p in fn.params():
-        ann = dotted(p.annotation) if p.annotation is not None else None
-        if p.arg not in _STATIC_PARAMS and ann not in _HOST_ANNOTATIONS:
+        if p.arg in _STATIC_PARAMS or p.arg.endswith("_dtype"):
+            continue
+        if p.annotation is None or not _host_annotation(p.annotation):
             out.add(p.arg)
     return out
 
@@ -75,8 +104,15 @@ def _expr_tainted(node: ast.AST, tainted: Set[str],
         if isinstance(node.func, ast.Attribute) \
                 and node.func.attr in _HOST_METHODS:
             return False
+        if name in _HOST_TORCH_CALLS:
+            return False
         if name.startswith("torch."):
             return True
+        # a function of this module annotated to return a host type
+        local = mod.functions.get(dotted(node.func) or "")
+        if local is not None and local.node.returns is not None \
+                and _host_annotation(local.node.returns):
+            return False
         # method calls on tainted receivers stay tainted (x.sum() ...)
         if isinstance(node.func, ast.Attribute):
             return _expr_tainted(node.func.value, tainted, mod)
@@ -94,6 +130,43 @@ def _expr_tainted(node: ast.AST, tainted: Set[str],
     if isinstance(node, ast.Starred):
         return _expr_tainted(node.value, tainted, mod)
     return False
+
+
+def _bool_tainted(node: ast.AST, tainted: Set[str],
+                  mod: ModuleInfo) -> bool:
+    """Does Python's truth test of this expression read a tensor?"""
+    if isinstance(node, ast.BoolOp):
+        return any(_bool_tainted(v, tainted, mod) for v in node.values)
+    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.Not):
+        return _bool_tainted(node.operand, tainted, mod)
+    if isinstance(node, ast.Compare):
+        if all(isinstance(op, (ast.Is, ast.IsNot)) for op in node.ops):
+            return False
+        # A string is never an element of a tensor (``"b_q" in p`` is a
+        # key of a mapping): membership of a string literal is host.
+        if isinstance(node.left, ast.Constant) \
+                and isinstance(node.left.value, str) \
+                and all(isinstance(op, (ast.In, ast.NotIn))
+                        for op in node.ops):
+            return False
+        sides = [node.left] + list(node.comparators)
+        return any(_expr_tainted(e, tainted, mod) for e in sides)
+    return _expr_tainted(node, tainted, mod)
+
+
+def _bool_tests(node: ast.AST) -> List[ast.AST]:
+    """The expressions Python reads as bools in ``node`` itself: a
+    statement's or a conditional expression's test, the operands of
+    ``and`` / ``or`` / ``not``, a comprehension's conditions."""
+    if isinstance(node, (ast.If, ast.While, ast.IfExp, ast.Assert)):
+        return [node.test]
+    if isinstance(node, ast.BoolOp):
+        return list(node.values)
+    if isinstance(node, ast.UnaryOp) and isinstance(node.op, ast.Not):
+        return [node.operand]
+    if isinstance(node, ast.comprehension):
+        return list(node.ifs)
+    return []
 
 
 def _body(fn: FunctionInfo) -> List[ast.AST]:
@@ -141,6 +214,21 @@ def _check_fn(mod: ModuleInfo, fn: FunctionInfo) -> List[Finding]:
     tainted = _propagate(fn, mod)
 
     def visit(node):
+        for test in _bool_tests(node):
+            # A nested and / or / not is visited on its own: flag its
+            # leaves there, once.
+            if isinstance(test, ast.BoolOp) or (
+                    isinstance(test, ast.UnaryOp)
+                    and isinstance(test.op, ast.Not)):
+                continue
+            if _bool_tainted(test, tainted, mod):
+                out.append(_finding(
+                    "JB05", mod, test, fn,
+                    "a tensor in a Python condition on the hot path is a "
+                    "device->host sync (bool() of the tensor)",
+                    "select with torch.where / masks on the device, or "
+                    "test host metadata (shapes, config) instead",
+                    ast.unparse(test)))
         if isinstance(node, ast.Call):
             if _is_sync_call(node):
                 if _is_sync_call(node.func.value):

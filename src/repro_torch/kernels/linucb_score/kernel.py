@@ -10,6 +10,8 @@ choice gives the same scores bit for bit.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build
@@ -45,7 +47,8 @@ def state_ptr(t, start: int) -> int:
 
 
 def linucb_score_blocked(x, theta, ainv, pen, infl, alpha, out,
-                         states=None, block_r: int = TILE_ROWS) -> None:
+                         states: Optional[tuple] = None,
+                         block_r: int = TILE_ROWS) -> None:
     """Scores into ``out`` (S, R, K) on the current stream, ``block_r``
     rows a block. All operands are checked, contiguous f32 CUDA tensors
     (``ops.linucb_score``). ``states`` = (start, stop) scores only those

@@ -10,6 +10,8 @@ score the row themselves.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import build
@@ -32,7 +34,7 @@ def scores_workspace(S: int, B: int, K: int, device):
 
 
 def linucb_step_blocked(ins, outs, scores, *, num_valid: int,
-                        dt_max: int, states=None) -> None:
+                        dt_max: int, states: Optional[tuple] = None) -> None:
     """Run one block step. ``ins`` are the 23 operands of
     ``ref.linucb_step_ref`` in order; ``outs`` the 10 preallocated
     outputs (A', A_inv', b', theta', last_upd', arms, r, c, lam', c_ema');

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.models.ssm import ssd_chunked
 
 
-def _pad(x, dt, B_in, C_in, chunk):
+def _pad(x, dt, B_in, C_in, chunk: int):
     pad = (-x.shape[1]) % chunk
     if pad:
         x = F.pad(x, (0, 0, 0, 0, 0, pad))

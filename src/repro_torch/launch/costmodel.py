@@ -26,6 +26,10 @@ Python loops (over layers, query blocks, cache blocks) are counted once per
 trip, which is what JAX's scan multiplication does; the recompute of a
 ``torch.utils.checkpoint`` region is counted in the backward, where it
 runs. ``fn_cost`` adds the bytes of the top-level arguments and outputs.
+
+A DTensor counts in bytes and memory by its local tensor, the shard this
+rank holds, so a step traced on placed arguments gives per-device
+memory; its FLOPs, which count global shapes, are not per device.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ import weakref
 from typing import Any, Mapping, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -58,10 +63,17 @@ _MATERIALIZING = {
 }
 
 
+def _local(t):
+    """A DTensor's local shard, any other tensor itself."""
+    return t._local_tensor if isinstance(t, DTensor) else t
+
+
 def nbytes(t) -> int:
-    """Bytes of a tensor's elements (0 for anything else)."""
+    """Bytes of a tensor's elements, a DTensor's local ones (0 for
+    anything else)."""
     if not isinstance(t, torch.Tensor):
         return 0
+    t = _local(t)
     return t.numel() * t.element_size()
 
 
@@ -119,7 +131,7 @@ class _Counter(TorchDispatchMode):
             r = returns[min(i, len(returns) - 1)]
             if r.alias_info is not None:
                 continue
-            st = t.untyped_storage()
+            st = _local(t).untyped_storage()
             n = st.nbytes()
             self.live += n
             weakref.finalize(st, self._free, n)
@@ -171,10 +183,11 @@ def trace_cost(fn, *args) -> Tuple[Any, Cost]:
     with FlopCounterMode(display=False) as fc, _Counter(cost):
         out = fn(*args)
     cost.flop_counter = int(fc.get_total_flops())
-    arg_storages = {id(t.untyped_storage()) for t in arg_leaves}
+    arg_storages = {id(_local(t).untyped_storage()) for t in arg_leaves}
     out_leaves = list(tensors(out))
-    cost.output_bytes = sum(nbytes(t) for t in out_leaves
-                            if id(t.untyped_storage()) not in arg_storages)
+    cost.output_bytes = sum(
+        nbytes(t) for t in out_leaves
+        if id(_local(t).untyped_storage()) not in arg_storages)
     # fn_cost's top-level traffic: every argument and output leaf once.
     cost.hbm_bytes += cost.argument_bytes + sum(nbytes(t)
                                                 for t in out_leaves)

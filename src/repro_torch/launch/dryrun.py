@@ -1,28 +1,58 @@
-"""One-device dry run: what each (architecture x input shape) step costs on
-one H100, traced on ``meta`` tensors, so nothing is computed or allocated
-and no card is needed.
+"""Dry run: what each (architecture x input shape) step costs, traced on
+``meta`` tensors, so nothing is computed or allocated and no card is
+needed; on one H100, or per device of the production mesh.
 
 For every (architecture x input shape) it builds the step the JAX
 package's dry run lowers (``make_train_step`` on a ``TrainState``,
 ``prefill_forward`` on the token batch, ``decode_step(impl="einsum")`` on
-the decode specs), traces it under ``costmodel.trace_cost`` (at one and
-two layer units, extrapolated to the full depth: ``step_cost``) and
+the decode specs), traces it under ``costmodel.trace_cost`` (at two and
+three layer units, extrapolated to the full depth: ``step_cost``) and
 writes its FLOPs, HBM bytes, live memory and roofline terms, with the JAX
-dry run's result keys where they mean the same. One device has no
-collective: ``collectives`` is {} and the wire bytes 0, as the JAX dry run
-gives with ``collectives=False``; its ``xla_cost_analysis`` becomes
-``flop_counter``, what ``torch.utils.flop_counter.FlopCounterMode`` counts
-on the same trace. The mesh, the sharding profiles, the multi-pod pass and
-the expert axis need sharding (ROADMAP.md, queue 1 item 3) and raise
-``NotImplementedError``.
+dry run's result keys where they mean the same; its ``xla_cost_analysis``
+becomes ``flop_counter``, what ``torch.utils.flop_counter.FlopCounterMode``
+counts on the same trace.
+
+With no mesh option the run is one device: ``collectives`` is {} and the
+wire bytes 0, because one device has none. ``--skip-collectives``
+(``collectives=False``, the JAX dry run's "lowering proof only" pass)
+runs on the production mesh instead: 16 x 16 = 256 devices, or 2 x 16 x
+16 = 512 with ``--multi-pod``, under ``--profile tp|fsdp|dp`` and
+``--ep-axis model|data``, on a world of 512 ranks of
+``torch.distributed``'s fake backend when no world exists (the
+counterpart of JAX's 512 placeholder devices), destroyed at the end.
+There, as in JAX:
+
+  * FLOPs and HBM bytes per device are the one-device trace's global
+    totals / ``n_chips``;
+  * ``collectives`` is {} and the wire bytes 0: the collectives are not
+    estimated in this pass;
+  * memory is per device. The step runs once more with its arguments
+    placed as DTensors on ``meta`` shards under the placement rules
+    (``launch/sharding.py``; the state by ``_state_shardings``) and the
+    model's activation hints installed (``pspec.set_mesh``), at the same
+    two depths. ``argument_bytes`` is the bytes of rank 0's shards, the
+    sum of ``NamedSharding.shard_shape`` over the placed leaves, which is
+    XLA's ``argument_size_in_bytes``. ``output_bytes`` counts the
+    result's shards that are not arguments (a decode step's caches are
+    updated in place, so they count once, as arguments). ``temp_bytes``
+    is NOT XLA's number, which fuses and reuses buffers: it is the
+    high-water mark of the eager local storages alive at once, every
+    shard an op of the step created until it is freed (what DTensor
+    allocates inside one op to redistribute its inputs is not seen).
+
+The collective estimate and the mesh runs with collectives (the mesh
+options without ``--skip-collectives``) raise ``NotImplementedError``
+(ROADMAP.md, queue 1 item 2).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--kv-dtype float8_e4m3fn] [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k --skip-collectives [--multi-pod] [--profile fsdp] [--ep-axis data]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--skip-collectives [--multi-pod]] [--kv-dtype float8_e4m3fn] [--out DIR]
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -31,6 +61,8 @@ import time
 import traceback
 
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch import configs, tree
 from repro_torch.configs.shapes import (
@@ -38,17 +70,51 @@ from repro_torch.configs.shapes import (
 )
 from repro_torch.launch import costmodel
 from repro_torch.launch import roofline as rl
+from repro_torch.launch import sharding as shard_lib
+from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.models import decode_step, init_model, prefill_forward
+from repro_torch.models.pspec import set_mesh
+from repro_torch.optim.adamw import AdamWState
+from repro_torch.partition import NamedSharding, P
 from repro_torch.training import make_train_step, train_state_init
+from repro_torch.training.train_step import TrainState
 
-N_CHIPS = 1
 OUT = "benchmarks/results/dryrun_torch"
-SHARDING = ("needs sharding and the production mesh (ROADMAP.md, queue 1 "
-            "item 3)")
+# The fake world a mesh run starts when none exists: JAX's 512
+# placeholder devices, which hold both production meshes.
+FAKE_WORLD = 512
+COLLECTIVES = ("needs the collective estimate (ROADMAP.md, queue 1 item "
+               "2); run it with --skip-collectives (collectives=False), "
+               "which writes no collectives")
 
 
 def _refuse(what: str) -> None:
-    raise NotImplementedError(f"{what} {SHARDING}")
+    raise NotImplementedError(f"{what} {COLLECTIVES}")
+
+
+def _refuse_mesh_options(multi_pod: bool, profile: str,
+                         ep_axis: str) -> None:
+    """A mesh option with collectives: the estimate is not ported."""
+    if multi_pod:
+        _refuse("the multi-pod mesh")
+    if profile != "tp":
+        _refuse(f"the {profile!r} sharding profile")
+    if ep_axis != "model":
+        _refuse(f"the expert axis on {ep_axis!r}")
+
+
+def _mesh_name(multi_pod: bool) -> str:
+    return "2x16x16" if multi_pod else "16x16"
+
+
+def _state_shardings(mesh, param_sh):
+    """The ``TrainState``'s shardings: the AdamW moments like the
+    parameters, the step replicated (the JAX dry run's)."""
+    rep = NamedSharding(mesh, P())
+    return TrainState(
+        params=param_sh,
+        opt=AdamWState(step=rep, mu=param_sh, nu=param_sh),
+    )
 
 
 def _build_step(cfg, shape, remat: bool, infer_dtype: str = ""):
@@ -106,6 +172,19 @@ def _trace(cfg, shape, remat: bool, infer_dtype: str) -> costmodel.Cost:
     return costmodel.trace_cost(step, *args)[1]
 
 
+def _depth_fit(trace, cfg) -> costmodel.Cost:
+    """``trace(cfg)`` at ``cfg``'s depth; beyond three layer units, the
+    traces at two and three units extrapolated linearly (``step_cost``)."""
+    k_full = cfg.num_layers // _layer_unit(cfg)
+    if k_full <= 3:
+        return trace(cfg)
+    lo, hi = (trace(_depth_variant(cfg, k)) for k in (2, 3))
+    return costmodel.Cost(**{
+        f.name: getattr(lo, f.name) + (getattr(hi, f.name)
+                                       - getattr(lo, f.name)) * (k_full - 2)
+        for f in dataclasses.fields(costmodel.Cost)})
+
+
 def step_cost(cfg, shape, remat: bool = True,
               infer_dtype: str = "") -> costmodel.Cost:
     """The step's ``Cost`` at ``cfg``'s depth. Beyond three layer units it
@@ -117,30 +196,115 @@ def step_cost(cfg, shape, remat: bool = True,
     unit is behind it. A trace of the full depth of a 95-layer model at
     32k tokens takes minutes on the host; the two small ones take
     seconds."""
-    k_full = cfg.num_layers // _layer_unit(cfg)
-    if k_full <= 3:
-        return _trace(cfg, shape, remat, infer_dtype)
-    lo, hi = (_trace(_depth_variant(cfg, k), shape, remat, infer_dtype)
-              for k in (2, 3))
-    return costmodel.Cost(**{
-        f.name: getattr(lo, f.name) + (getattr(hi, f.name)
-                                       - getattr(lo, f.name)) * (k_full - 2)
-        for f in dataclasses.fields(costmodel.Cost)})
+    return _depth_fit(lambda c: _trace(c, shape, remat, infer_dtype), cfg)
+
+
+def _arg_shardings(mesh, cfg, shape, args, profile: str, ep_axis: str):
+    """The NamedShardings of ``_build_step``'s arguments under the
+    placement rules, a tree of the arguments' structure."""
+    if shape.kind == "train":
+        state, batch = args
+        param_sh = shard_lib.tree_param_shardings(mesh, state.params,
+                                                  profile, ep_axis)
+        return (_state_shardings(mesh, param_sh),
+                shard_lib.train_batch_shardings(mesh, batch, profile))
+    param_sh = shard_lib.tree_param_shardings(mesh, args[0], profile,
+                                              ep_axis)
+    if shape.kind == "prefill":
+        return param_sh, shard_lib.train_batch_shardings(mesh, args[1],
+                                                         profile)
+    return (param_sh,) + shard_lib.cache_shardings(mesh, cfg, *args[1:])
+
+
+def _pos_bytes(shape) -> int:
+    """A decode step's int ``pos``, a traced int32 scalar in JAX: 4."""
+    return 4 if shape.kind == "decode" else 0
+
+
+def argument_bytes(cfg, shape, mesh, infer_dtype: str = "",
+                   profile: str = "tp", ep_axis: str = "model") -> int:
+    """The step's argument bytes per device on ``mesh`` (XLA's
+    ``argument_size_in_bytes``), from the shardings alone: no trace."""
+    _, args = _build_step(cfg, shape, True, infer_dtype)
+    shards = shard_lib.map_shardings(
+        lambda t, s: t.new_empty(s.shard_shape(t.shape)), args,
+        _arg_shardings(mesh, cfg, shape, args, profile, ep_axis))
+    return sum(map(costmodel.nbytes, costmodel.tensors(shards))) \
+        + _pos_bytes(shape)
+
+
+def _mesh_trace(cfg, shape, mesh, remat: bool, infer_dtype: str,
+                profile: str, ep_axis: str) -> costmodel.Cost:
+    """The step traced with its arguments placed on ``mesh``: a ``Cost``
+    whose memory counts are rank 0's local bytes. Tensors the step makes
+    from scratch (positions, masks) join as replicated."""
+    step, args = _build_step(cfg, shape, remat, infer_dtype)
+    sh = _arg_shardings(mesh, cfg, shape, args, profile, ep_axis)
+    with implicit_replication():
+        cost = costmodel.trace_cost(step, *shard_lib.shard_tree(args, sh))[1]
+    # The placed tensors count the shards DTensor cut.
+    cost.argument_bytes += _pos_bytes(shape)
+    return cost
+
+
+def mesh_memory(cfg, shape, mesh, remat: bool = True, infer_dtype: str = "",
+                profile: str = "tp", ep_axis: str = "model"
+                ) -> costmodel.Cost:
+    """Per-device memory of the step on ``mesh`` (its argument, output and
+    temp bytes), at ``cfg``'s depth by ``step_cost``'s two-depth fit. The
+    caller installs the activation hints (``pspec.set_mesh``)."""
+    return _depth_fit(lambda c: _mesh_trace(c, shape, mesh, remat,
+                                            infer_dtype, profile, ep_axis),
+                      cfg)
+
+
+@contextlib.contextmanager
+def _world(n: int):
+    """A process group of at least ``n`` ranks: the caller's, or, when
+    none exists, a fake world of ``FAKE_WORLD`` ranks in this process,
+    destroyed on the way out. A smaller world of the caller's raises in
+    ``make_production_mesh``."""
+    if dist.is_initialized():
+        yield
+        return
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=max(n, FAKE_WORLD))
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_cost(cfg, shape, multi_pod: bool, remat: bool, infer_dtype: str,
+               profile: str, ep_axis: str) -> costmodel.Cost:
+    n = 512 if multi_pod else 256
+    with _world(n):
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        set_mesh(mesh, shard_lib.activation_hint_specs(mesh, profile,
+                                                       ep_axis))
+        try:
+            return mesh_memory(cfg, shape, mesh, remat, infer_dtype,
+                               profile, ep_axis)
+        finally:
+            set_mesh(None)
 
 
 def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                 remat: bool = True, verbose: bool = True,
-                profile: str = "tp", kv_dtype: str = "",
-                infer_dtype: str = "", moe_groups: int = 0,
-                ep_axis: str = "model") -> dict:
-    """The result dict of one (arch, shape) on one device (or the
-    documented skip). Prints the analyses when ``verbose``."""
-    if multi_pod:
-        _refuse("the multi-pod mesh")
-    if profile != "tp":
-        _refuse(f"the {profile!r} sharding profile")
-    if ep_axis != "model":
-        _refuse(f"the expert axis on {ep_axis!r}")
+                collectives: bool = True, profile: str = "tp",
+                kv_dtype: str = "", infer_dtype: str = "",
+                moe_groups: int = 0, ep_axis: str = "model") -> dict:
+    """The result dict of one (arch, shape) (or the documented skip).
+    Prints the analyses when ``verbose``.
+
+    ``collectives=False`` runs on the production mesh (``multi_pod``:
+    2 x 16 x 16, else 16 x 16) with no collective estimate, as the JAX dry
+    run's pass of that name; ``collectives=True`` is the one-device run,
+    which has no mesh option."""
+    if collectives:
+        _refuse_mesh_options(multi_pod, profile, ep_axis)
     shape = INPUT_SHAPES[shape_name]
     cfg = variant_for_shape(configs.get_config(arch), shape)
     if cfg is None:
@@ -154,23 +318,33 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     t0 = time.perf_counter()
     cost = step_cost(cfg, shape, remat, infer_dtype)
     t_trace = time.perf_counter() - t0
-    mem = {"argument_bytes": cost.argument_bytes,
-           "output_bytes": cost.output_bytes,
-           "temp_bytes": cost.temp_bytes,
-           "peak_bytes": (cost.argument_bytes + cost.output_bytes
-                          + cost.temp_bytes)}
+    if collectives:
+        n_chips, mesh_name, mem_cost = 1, "1", cost
+    else:
+        n_chips = 512 if multi_pod else 256
+        mesh_name = _mesh_name(multi_pod)
+        t0 = time.perf_counter()
+        mem_cost = _mesh_cost(cfg, shape, multi_pod, remat, infer_dtype,
+                              profile, ep_axis)
+        t_mesh = time.perf_counter() - t0
+    mem = {"argument_bytes": mem_cost.argument_bytes,
+           "output_bytes": mem_cost.output_bytes,
+           "temp_bytes": mem_cost.temp_bytes,
+           "peak_bytes": (mem_cost.argument_bytes + mem_cost.output_bytes
+                          + mem_cost.temp_bytes)}
     result = {
         "arch": arch,
         "shape": shape_name,
-        "mesh": str(N_CHIPS),
+        "mesh": mesh_name,
         "kind": shape.kind,
         "variant": {"profile": profile, "kv_dtype": kv_dtype,
                     "infer_dtype": infer_dtype},
-        "n_chips": N_CHIPS,
-        "flops_per_device": cost.flops / N_CHIPS,
-        "hbm_bytes_per_device": cost.hbm_bytes / N_CHIPS,
-        "dot_flops_per_device": cost.dot_flops / N_CHIPS,
-        "flop_counter": {"flops": cost.flop_counter},
+        "n_chips": n_chips,
+        "flops_per_device": cost.flops / n_chips,
+        "hbm_bytes_per_device": cost.hbm_bytes / n_chips,
+        "dot_flops_per_device": cost.dot_flops / n_chips,
+        "flop_counter": {"flops": (cost.flop_counter if collectives
+                                   else cost.flop_counter / n_chips)},
         "collectives": {},
         "wire_bytes_per_device": 0.0,
         "memory": mem,
@@ -179,22 +353,27 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         "model_flops_global": rl.model_flops(cfg, shape),
         "trace_s": t_trace,
     }
-    result["model_flops_per_device"] = result["model_flops_global"] / N_CHIPS
+    if not collectives:
+        result["mesh_trace_s"] = t_mesh
+    result["model_flops_per_device"] = result["model_flops_global"] / n_chips
     result["useful_flops_ratio"] = (
         result["model_flops_global"] / max(cost.flops, 1.0))
     result.update(rl.roofline_terms(result["flops_per_device"],
                                     result["hbm_bytes_per_device"], 0.0))
     if verbose:
-        print(f"== {arch} x {shape_name} (1 device) ==")
+        where = "1 device" if collectives else mesh_name
+        print(f"== {arch} x {shape_name} ({where}) ==")
         print("memory:", mem)
         print("FlopCounterMode: flops=%.3e; cost model: flops=%.3e "
-              "(matmul %.3e) bytes=%.3e" % (
+              "(matmul %.3e) bytes=%.3e (global)" % (
                   cost.flop_counter, cost.flops, cost.dot_flops,
                   cost.hbm_bytes))
         print("roofline: compute %.4fs memory %.4fs collective %.4fs -> %s"
               % (result["compute_s"], result["memory_s"],
                  result["collective_s"], result["dominant"]))
-        print("trace %.1fs" % t_trace, flush=True)
+        print("trace %.1fs" % t_trace
+              + ("" if collectives else "; mesh trace %.1fs" % t_mesh),
+              flush=True)
     return result
 
 
@@ -204,12 +383,14 @@ def main(argv=None):
     ap.add_argument("--shape", choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="not on one device: raises NotImplementedError")
+                    help="the 2x16x16 mesh (with --skip-collectives)")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--skip-collectives", action="store_true",
-                    help="not on one device: raises NotImplementedError")
+                    help="per device of the production mesh, no "
+                         "collective estimate (the lowering-proof pass)")
     ap.add_argument("--profile", default="tp", choices=("tp", "fsdp", "dp"),
-                    help="sharding profile; one device runs tp only")
+                    help="sharding profile; fsdp / dp need "
+                         "--skip-collectives")
     ap.add_argument("--kv-dtype", default="",
                     help="decode cache dtype override (e.g. float8_e4m3fn)")
     ap.add_argument("--infer-dtype", default="",
@@ -217,13 +398,16 @@ def main(argv=None):
     ap.add_argument("--moe-groups", type=int, default=0,
                     help="grouped MoE dispatch (see models/moe.py)")
     ap.add_argument("--ep-axis", default="model", choices=("model", "data"),
-                    help="mesh axis of the MoE experts; one device: model")
+                    help="mesh axis of the MoE experts; data needs "
+                         "--skip-collectives")
     ap.add_argument("--tag", default="",
                     help="suffix for result files (perf iterations)")
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
-    if args.skip_collectives:
-        _refuse("--skip-collectives (the multi-pod pass)")
+    collectives = not args.skip_collectives
+    if collectives:
+        # Raise before any combo runs, as lower_combo would for each.
+        _refuse_mesh_options(args.multi_pod, args.profile, args.ep_axis)
 
     if args.all:
         combos = [(a, s) for a in configs.ARCH_IDS for s in INPUT_SHAPES]
@@ -232,10 +416,11 @@ def main(argv=None):
     else:
         ap.error("--arch and --shape, or --all")
 
+    suffix = "1" if collectives else _mesh_name(args.multi_pod)
     os.makedirs(args.out, exist_ok=True)
     failures = []
     for arch, shape in combos:
-        tag = f"{arch}_{shape}_{N_CHIPS}"
+        tag = f"{arch}_{shape}_{suffix}"
         if args.tag:
             tag += f"_{args.tag}"
         path = os.path.join(args.out, tag + ".json")
@@ -243,12 +428,12 @@ def main(argv=None):
             print(f"skip (exists): {tag}", flush=True)
             continue
         try:
-            res = lower_combo(arch, shape, multi_pod=args.multi_pod,
-                              remat=not args.no_remat, profile=args.profile,
-                              kv_dtype=args.kv_dtype,
-                              infer_dtype=args.infer_dtype,
-                              moe_groups=args.moe_groups,
-                              ep_axis=args.ep_axis)
+            res = lower_combo(
+                arch, shape, multi_pod=args.multi_pod,
+                remat=not args.no_remat, collectives=collectives,
+                profile=args.profile, kv_dtype=args.kv_dtype,
+                infer_dtype=args.infer_dtype, moe_groups=args.moe_groups,
+                ep_axis=args.ep_axis)
         except NotImplementedError:
             raise
         except Exception as e:  # noqa: BLE001 - report and go on

@@ -179,23 +179,38 @@ def activation_hint_specs(mesh, profile: str = "tp",
     }
 
 
-def shard_tree(tree, shardings):
-    """Place every tensor leaf of ``tree`` as a DTensor under the
+def map_shardings(fn, tree, shardings):
+    """``fn(leaf, sharding)`` over every tensor leaf of ``tree`` and the
     NamedSharding at the same place in ``shardings`` (a tree of the same
-    structure: nested mappings, named tuples and dataclasses, as
-    ``tree_param_shardings`` and ``cache_shardings`` give). Leaves that
-    are not tensors (``pos``, absent stacks) stay as they are."""
+    structure: nested mappings, tuples, named tuples and dataclasses, as
+    ``tree_param_shardings`` and ``cache_shardings`` give), as a tree of
+    ``tree``'s structure. Leaves that are not tensors (``pos``, absent
+    stacks) stay as they are."""
     if isinstance(tree, torch.Tensor):
-        return distribute_tensor(tree, shardings.mesh, shardings.placements)
+        return fn(tree, shardings)
     if isinstance(tree, dict):
-        return {k: shard_tree(v, shardings[k]) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(shard_tree(v, s)
-                            for v, s in zip(tree, shardings)))
+        return {k: map_shardings(fn, v, shardings[k])
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        kids = (map_shardings(fn, v, s) for v, s in zip(tree, shardings))
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else tuple(kids)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return type(tree)(**{
-            f.name: shard_tree(getattr(tree, f.name),
-                               getattr(shardings, f.name))
+            f.name: map_shardings(fn, getattr(tree, f.name),
+                                  getattr(shardings, f.name))
             for f in dataclasses.fields(tree)})
     return tree
+
+
+def shard_tree(tree, shardings):
+    """Place every tensor leaf of ``tree`` as a DTensor under the
+    NamedSharding at the same place in ``shardings`` (``map_shardings``).
+    Each rank cuts its shard from its own copy of the whole tensor, with
+    no communication: every rank holds the same tensor (a seeded init, or
+    ``meta`` tensors, whose shards allocate nothing)."""
+    return map_shardings(
+        lambda t, s: distribute_tensor(t, s.mesh, s.placements,
+                                       src_data_rank=None),
+        tree, shardings)
 

@@ -26,6 +26,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import gathered, grad_gathered, reshaped
 
 Tensor = torch.Tensor
 
@@ -68,14 +69,20 @@ def qkv_project(p, cfg: ModelConfig, x: Tensor,
         q = q + p["b_q"].to(dt)
         k = k + p["b_k"].to(dt)
         v = v + p["b_v"].to(dt)
-    return (q.reshape(B, S, cfg.num_heads, cfg.hd),
-            k.reshape(B, T, cfg.num_kv_heads, cfg.hd),
-            v.reshape(B, T, cfg.num_kv_heads, cfg.hd))
+    # On a mesh, fewer heads than the model axis's shards need the
+    # projection gathered before the head split (pspec.reshaped).
+    H, KV = cfg.num_heads, cfg.num_kv_heads
+    return (reshaped(q, (B, S, H, cfg.hd), -1, H),
+            reshaped(k, (B, T, KV, cfg.hd), -1, KV),
+            reshaped(v, (B, T, KV, cfg.hd), -1, KV))
 
 
 def _expand_kv(k: Tensor, groups: int) -> Tensor:
-    """(B, T, KV, hd) -> (B, T, KV*G, hd) by repeat (GQA)."""
-    return k.repeat_interleave(groups, dim=2)
+    """(B, T, KV, hd) -> (B, T, KV*G, hd) by repeat (GQA). On a mesh the
+    gradient's heads are gathered before the repeat's backward folds them
+    into (KV, G) (pspec.grad_gathered); G = 1 folds nothing."""
+    kx = k.repeat_interleave(groups, dim=2)
+    return grad_gathered(kx, 2) if groups > 1 else kx
 
 
 def _mask(mode: str, q_pos: Tensor, k_pos: Tensor, window: int) -> Tensor:
@@ -148,9 +155,13 @@ def chunked_attention(
     for i in range(0, S, q_block):
         q32 = q[:, i:i + q_block].float()
         qp = q_pos[i:i + q_block]
-        m_run = torch.full((B, H, q_block), NEG_INF, device=q.device)
-        l_run = torch.zeros((B, H, q_block), device=q.device)
-        acc = torch.zeros((B, H, q_block, hd), device=q.device)
+        # The accumulators take q's placements on a mesh (zeros_like of a
+        # DTensor is sharded as it is; a fresh tensor would be replicated).
+        acc = torch.zeros_like(q32.transpose(1, 2),
+                               memory_format=torch.contiguous_format)
+        l_run = torch.zeros_like(acc[..., 0],
+                                 memory_format=torch.contiguous_format)
+        m_run = torch.full_like(l_run, NEG_INF)
         for j in range(0, T, kv_block):
             kx = _expand_kv(k[:, j:j + kv_block], G).float()
             vx = _expand_kv(v[:, j:j + kv_block], G).float()
@@ -208,7 +219,8 @@ def attention(
         out = fa_ops.flash_attention(q, k, v, mode=mode, window=window)
     else:
         raise ValueError(impl)
-    out = out.reshape(B, S, cfg.num_heads * cfg.hd) @ p["w_o"].to(x.dtype)
+    out = reshaped(out, (B, S, cfg.num_heads * cfg.hd), 2,
+                   cfg.num_heads) @ p["w_o"].to(x.dtype)
     if return_kv:
         return out, (k, v)
     return out
@@ -268,7 +280,7 @@ def decode_attention(
         out = _masked_decode(q, k_cache, v_cache, valid, kv_block)
     else:
         raise ValueError(impl)
-    out = out.reshape(B, 1, cfg.num_heads * cfg.hd)
+    out = reshaped(out, (B, 1, cfg.num_heads * cfg.hd), 2, cfg.num_heads)
     return out @ p["w_o"].to(x.dtype), k_cache, v_cache
 
 
@@ -279,7 +291,10 @@ def _einsum_decode(q, k_cache, v_cache, valid):
     B, _, H, hd = q.shape
     KV = k_cache.shape[2]
     cdt = q.dtype
-    q4 = q[:, 0].reshape(B, KV, H // KV, hd).float()
+    # On a mesh the contractions batch (b, k) as one flattened dimension,
+    # which DTensor cannot form with k sharded: the token's query heads
+    # are gathered first (pspec.gathered).
+    q4 = gathered(q[:, 0], 1).reshape(B, KV, H // KV, hd).float()
     s = torch.einsum("bkgd,bwkd->bkgw", q4,
                      k_cache.to(cdt).float()) * (1.0 / float(hd) ** 0.5)
     s = torch.where(valid, s, NEG_INF)

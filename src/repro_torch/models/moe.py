@@ -9,8 +9,10 @@ and gathered back with weight 0. The expert FFNs run as one batched
 product over the expert axis (the JAX package computes it outside any
 Pallas kernel too), and the results gather back weighted by the router's
 gates, renormalised over the top k. Every expert's buffer runs through its
-FFN whatever it holds, so a step reads every expert's weights. The JAX
-package's sharding hints have no counterpart here.
+FFN whatever it holds, so a step reads every expert's weights. The
+buffers carry the JAX package's sharding hints (``pspec.hint``:
+"moe_buffer", and "moe_group_local" for the grouped dispatch's per-group
+buffers), which place them on a mesh and do nothing without one.
 
 Covers DBRX (16 experts, top-4, fine-grained) and Llama-4 Maverick (128
 experts, top-1).
@@ -25,6 +27,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import gathered, hint, index_add, reshaped
 
 Tensor = torch.Tensor
 
@@ -79,7 +82,9 @@ def apply_moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
     """x: (B, S, D) -> (out (B, S, D), aux load-balance loss scalar)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
-    tokens = x.reshape(B * S, D)
+    # On a mesh the tokens' gradient comes back sharded over every axis
+    # on its rows, which the batch may not divide (pspec.reshaped).
+    tokens = reshaped(x, (B * S, D), 0, B)
     N = B * S
 
     logits = tokens @ p["router"].to(x.dtype)               # (N, E)
@@ -96,7 +101,7 @@ def apply_moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
         out = _dispatch_grouped(p, cfg, tokens, gates, eids, G)
     else:
         out = _dispatch_flat(p, cfg, tokens, gates, eids)
-    return out.reshape(B, S, D), aux
+    return reshaped(out, (B, S, D), 0, B), aux
 
 
 def _dispatch_flat(p, cfg: ModelConfig, tokens, gates, eids) -> Tensor:
@@ -118,7 +123,9 @@ def _dispatch_grouped(p, cfg: ModelConfig, tokens, gates, eids,
     Ng = N // G
     Cg = capacity(cfg, Ng)
 
-    eids_g = eids.reshape(G, Ng * K)
+    # G groups on a data axis they do not divide: gathered before the
+    # split (pspec.reshaped).
+    eids_g = reshaped(eids, (G, Ng * K), 0, G)
     pos = _positions_in_expert(eids_g, E)
     keep = pos < Cg                                         # capacity drop
     slot = eids_g * Cg + pos.clamp(0, Cg - 1)               # (G, Ng*K)
@@ -127,11 +134,25 @@ def _dispatch_grouped(p, cfg: ModelConfig, tokens, gates, eids,
     rows = (slot + torch.arange(G, device=slot.device)[:, None] * E * Cg
             ).reshape(-1)
     vals = tokens.repeat_interleave(K, dim=0) * keep.reshape(-1, 1).to(dt)
-    buf = tokens.new_zeros((G * E * Cg, D)).index_add_(0, rows, vals)
+    # On a mesh the routed copies are gathered over the data shards before
+    # the scatter (pspec.gathered; XLA scatters each shard's copies and
+    # all-reduces the buffer): DTensor's index_add rule cannot pair row
+    # shards of vals with a whole buffer. The buffer's zeros are placed
+    # as the tokens' columns are, which is how the scatter places vals'.
+    zeros = torch.zeros_like(tokens[:1].expand(G * E * Cg, D),
+                             memory_format=torch.contiguous_format)
+    buf = index_add(zeros, gathered(rows, 0), gathered(vals, 0))
 
-    buf = buf.reshape(G, E, Cg, D).transpose(0, 1).reshape(E, G * Cg, D)
-    out = _ffn(p, buf, dt)
-    back = out.reshape(E, G, Cg, D).transpose(0, 1).reshape(G * E * Cg, D)
+    if G == 1:                                  # the flat dispatch
+        buf = hint(buf.reshape(E, Cg, D), "moe_buffer")
+        back = hint(_ffn(p, buf, dt), "moe_buffer").reshape(E * Cg, D)
+    else:
+        # (G, E, Cg, D) data-sharded -> (E, G * Cg, D) expert-sharded.
+        buf = hint(buf.reshape(G, E, Cg, D), "moe_group_local")
+        buf = hint(buf.transpose(0, 1).reshape(E, G * Cg, D), "moe_buffer")
+        out = hint(_ffn(p, buf, dt), "moe_buffer")
+        back = hint(out.reshape(E, G, Cg, D).transpose(0, 1),
+                    "moe_group_local").reshape(G * E * Cg, D)
 
     w = (gates.reshape(-1) * keep.reshape(-1).float()).to(dt)
     return (back[rows] * w[:, None]).reshape(N, K, D).sum(1)

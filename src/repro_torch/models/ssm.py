@@ -33,6 +33,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import gathered, reduced
 
 Tensor = torch.Tensor
 
@@ -156,7 +157,10 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
     f32 = torch.float32
     A = A.to(f32)
     D_skip = D_skip.to(f32)
-    h = (torch.zeros((Bb, H, N, P), dtype=f32, device=x.device)
+    # A zero state takes x's placements on a mesh (zeros_like of a
+    # DTensor is sharded as it is; a fresh tensor would be replicated).
+    h = (torch.zeros_like(x[:, 0, :, None, :].expand(Bb, H, N, P),
+                          dtype=f32, memory_format=torch.contiguous_format)
          if h0 is None else h0.to(f32))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))[None, :, :, None]
@@ -248,7 +252,9 @@ def mamba2_decode(p, cfg: ModelConfig, x: Tensor,
         raise ValueError(f"{cfg.name}: an SSM conv state in "
                          f"{state.conv.dtype} does not promote with the "
                          f"{dt_} input column")
-    x0 = x[:, 0]
+    # On a mesh the residual stream may arrive as a partial sum: it is
+    # completed before the projections (pspec.reduced).
+    x0 = reduced(x[:, 0])
     z = x0 @ p["wz"].to(dt_)
     xBC_new = _project_xBC(p, x0)                           # (B, d_in + 2N)
 
@@ -266,8 +272,10 @@ def mamba2_decode(p, cfg: ModelConfig, x: Tensor,
     A = -torch.exp(p["A_log"].float())
     dA = torch.exp(dt * A)                                  # (B, H)
     Bdt = _outer(B_in.float(), dt)                           # (B, N, H)
+    # _outer flattens (B, H): on a mesh the heads are gathered first,
+    # since DTensor cannot flatten a sharded inner dimension.
     h = state.h * dA[:, :, None, None] + _outer(
-        Bdt.transpose(1, 2), xs)
+        gathered(Bdt.transpose(1, 2), 1), gathered(xs, 1))
     y = (torch.einsum("bn,bhnp->bhp", C_in.float(), h)
          + xs * p["D"][None, :, None])
     y = y.reshape(Bb, d_in).to(dt_)

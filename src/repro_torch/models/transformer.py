@@ -58,6 +58,7 @@ from repro_torch import tree
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import gathered, hint, reshaped, take_last
 
 Tensor = torch.Tensor
 
@@ -341,6 +342,10 @@ def _cross_kv(params, cfg: ModelConfig, enc_out: Tensor):
     encoder's output, without the projections' biases (as the JAX
     package computes them)."""
     B, T, _ = enc_out.shape
+    # The broadcast product over layers flattens (L, B) into one batch,
+    # which DTensor cannot split back when B is sharded on a mesh: the
+    # encoder's batch is gathered first (pspec.gathered).
+    enc_out = gathered(enc_out, 0)
     xattn = params["blocks"]["xattn"]
     shape = (cfg.num_layers, B, T, cfg.num_kv_heads, cfg.hd)
     return {f"cross_{n}": (enc_out @ xattn[f"w_{n}"].to(enc_out.dtype)[:, None]
@@ -355,9 +360,9 @@ def _ce_block(h: Tensor, w_head: Tensor, labels: Tensor,
               mask: Tensor) -> Tuple[Tensor, Tensor]:
     """One block's masked next-token NLL sum and mask sum, from f32 logits
     (B, block, V)."""
-    logits = (h @ w_head.to(h.dtype)).float()
+    logits = hint((h @ w_head.to(h.dtype)).float(), "logits")
     lse = torch.logsumexp(logits, dim=-1)
-    picked = logits.gather(-1, labels[..., None].long())[..., 0]
+    picked = take_last(logits, labels.long())
     return ((lse - picked) * mask).sum(), mask.sum()
 
 
@@ -409,7 +414,7 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, Tensor],
     tokens, labels = batch["tokens"], batch["labels"]
     B = tokens.shape[0]
     dt = cfg.torch_dtype
-    x = params["embed"].to(dt)[tokens.long()]
+    x = hint(params["embed"].to(dt)[tokens.long()], "activations")
 
     enc_out = enc_positions = None
     if cfg.is_encdec:
@@ -486,7 +491,7 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
         n_secondary = cfg.num_layers // cfg.shared_attn_every
     W = cache_window(cfg, seq_len)
 
-    def stack(n, rows=W):
+    def stack(n: int, rows=W):
         if not n:
             return None
         return torch.zeros((n, batch, rows, cfg.num_kv_heads, cfg.hd), **kw)
@@ -526,7 +531,8 @@ def _cross_decode(p, cfg: ModelConfig, x, ck, cv):
     q = (x @ p["w_q"].to(dt)).reshape(B, 1, cfg.num_heads, cfg.hd)
     valid = torch.ones(ck.shape[1], dtype=torch.bool, device=x.device)
     out = attention._einsum_decode(q, ck, cv, valid)
-    return out.reshape(B, 1, cfg.num_heads * cfg.hd) @ p["w_o"].to(dt)
+    return reshaped(out, (B, 1, cfg.num_heads * cfg.hd), 2,
+                    cfg.num_heads) @ p["w_o"].to(dt)
 
 
 def _decode_moe_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl):
@@ -593,7 +599,10 @@ def decode_step(params, cfg: ModelConfig, token: Tensor,
                 caches: DecodeCaches, impl: Optional[str] = None):
     """One serve step: token (B, 1) -> f32 logits (B, V), caches (updated
     in place, ``pos`` advanced)."""
-    x = _decode_layers(params, cfg, _embed(params, cfg, token), caches, impl)
+    # On a mesh a token sharded over several mesh axes (pod and data) has
+    # no DTensor rule for the table lookup: the (B, 1) ids are gathered.
+    x = _decode_layers(params, cfg, _embed(params, cfg, gathered(token, 0)),
+                       caches, impl)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x[:, 0]), caches._replace(pos=caches.pos + 1)
 

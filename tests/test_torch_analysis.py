@@ -21,9 +21,10 @@ from repro_torch.analysis.findings import dedupe_keys, split_new
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURES = "tests/torch_analysis_fixtures"
 JAX_FIXTURES = "tests/analysis_fixtures"
-# The JB fixture's functions are hot-path roots only in these tests.
-FIXTURE_ROOTS = dict(HOT_PATH_ROOTS,
-                     **{"tests.torch_analysis_fixtures.jb_bad": PUBLIC})
+# The JB fixtures' functions are hot-path roots only in these tests.
+FIXTURE_ROOTS = dict(HOT_PATH_ROOTS, **{
+    f"tests.torch_analysis_fixtures.{m}": PUBLIC
+    for m in ("jb_bad", "jb05_bad", "jb05_host_ok")})
 
 # rule -> (fixture file, scope it fires in)
 EXPECTED = {
@@ -31,6 +32,7 @@ EXPECTED = {
     "JB02": ("jb_bad.py", "jb02_cast"),
     "JB03": ("jb_bad.py", "jb03_materialize"),
     "JB04": ("jb_bad.py", "jb04_iterate"),
+    "JB05": ("jb05_bad.py", "jb05_truthiness"),
     "RT01": ("rt_bad.py", "replay_twice"),
     "RT03": ("rt_bad.py", "scaled"),
     "PT01": ("pt01_bad.py", "ToyState"),
@@ -86,6 +88,45 @@ def test_jb_mirrors_the_jax_pass():
     assert {(f.rule, f.scope) for f in ours} == {
         (f.rule, f.scope) for f in theirs}
     assert len(ours) == len(theirs) == 4
+
+
+def test_jb05_leaves_host_conditions_alone():
+    assert run_analysis([f"{FIXTURES}/jb05_host_ok.py"], repo_root=ROOT,
+                        roots=FIXTURE_ROOTS) == []
+
+
+# Each place Python reads a value as a bool, on a tensor (flagged once)
+# and on host metadata (not flagged).
+JB05_FORMS = {
+    "if": ("    if {c}:\n        y = y + 1\n", 1),
+    "elif": ("    if x.shape[0] > 2:\n        y = y + 1\n"
+             "    elif {c}:\n        y = y + 2\n", 1),
+    "while": ("    while {c}:\n        y = y - 1\n", 1),
+    "assert": ("    assert {c}\n", 1),
+    "ifexp": ("    y = y if {c} else -y\n", 1),
+    "and": ("    y = x.shape[0] > 1 and {c}\n", 1),
+    "or": ("    y = {c} or x.shape[0] > 1\n", 1),
+    "not": ("    y = not {c}\n", 1),
+    "comprehension": ("    y = [v for v in range(3) if {c}]\n", 1),
+}
+
+
+@pytest.mark.parametrize("form", sorted(JB05_FORMS))
+@pytest.mark.parametrize("cond,flagged", [
+    ("x.any()", True), ("x.sum() > 0", True), ("t", True),
+    ("x.sum() > x.shape[0]", True), ("t.max() < len(x)", True),
+    ("x.shape[0] > 1", False), ("len(x) == 4", False),
+    ("x is None", False), ("cfg.causal", False),
+    ("x.dtype != t.dtype", False), ('"w_q" in x', False)])
+def test_jb05_fires_on_each_bool_form(tmp_path, form, cond, flagged):
+    body, n = JB05_FORMS[form]
+    (tmp_path / "snip.py").write_text(
+        "import torch\n\n\ndef f(x, cfg):\n"
+        "    t = torch.ones(()) * x.sum()\n    y = 0\n"
+        + body.format(c=cond) + "    return y\n")
+    got = run_analysis(["snip.py"], repo_root=str(tmp_path),
+                       roots={"snip": PUBLIC}, rules=["JB"])
+    assert [f.rule for f in got] == ["JB05"] * (n if flagged else 0), got
 
 
 @pytest.mark.parametrize("paths", [[f"{JAX_FIXTURES}/lk_bad.py"],

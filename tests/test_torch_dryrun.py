@@ -4,8 +4,10 @@
 step and the JAX dry run's result keys; the depth extrapolation equals a
 trace of the whole depth; ``init_model(device="meta")`` is the real tree's
 shapes and dtypes; one subprocess run of the CLI at a FULL config writes
-its JSON without touching CUDA; the flags that need sharding raise, and
-whisper x long_500k writes the documented skip.
+its JSON without touching CUDA, and one on the production mesh
+(``--skip-collectives``) that leaves no process group; the mesh options
+without ``--skip-collectives`` raise, and whisper x long_500k writes the
+documented skip.
 """
 import dataclasses
 import json
@@ -106,7 +108,33 @@ def test_cli_writes_one_combo_without_cuda(tmp_path):
     assert "all 1 combos traced OK" in out.stdout
 
 
+def test_cli_writes_a_mesh_combo_without_cuda(tmp_path):
+    """The same on the production mesh (--skip-collectives): the run
+    starts its own fake world, destroys it, and touches no CUDA."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    code = ("import sys, torch, torch.distributed as dist; "
+            "from repro_torch.launch import dryrun; "
+            "dryrun.main(sys.argv[1:]); "
+            "assert not torch.cuda.is_initialized(), 'CUDA was touched'; "
+            "assert not dist.is_initialized(), 'a world was left'")
+    out = subprocess.run(
+        [sys.executable, "-c", code, "--arch", "mamba2-370m",
+         "--shape", "decode_32k", "--skip-collectives", "--out",
+         str(tmp_path)],
+        env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    r = json.loads((tmp_path / "mamba2-370m_decode_32k_16x16.json"
+                    ).read_text())
+    assert r["n_chips"] == 256 and r["mesh"] == "16x16"
+    assert r["collectives"] == {} and r["wire_bytes_per_device"] == 0.0
+    assert 0 < r["memory"]["argument_bytes"] < r["memory"]["peak_bytes"]
+    assert "all 1 combos traced OK" in out.stdout
+
+
 def test_documented_skip_and_refused_flags(tmp_path):
+    """whisper x long_500k writes the documented skip; the mesh options
+    without --skip-collectives need the collective estimate and raise
+    before any combo runs (with it they run: test_torch_dryrun_mesh.py)."""
     dryrun.main(["--arch", "whisper-medium", "--shape", "long_500k",
                  "--out", str(tmp_path)])
     r = json.loads((tmp_path / "whisper-medium_long_500k_1.json").read_text())
@@ -114,7 +142,36 @@ def test_documented_skip_and_refused_flags(tmp_path):
     base = ["--arch", "olmo-1b", "--shape", "decode_32k", "--out",
             str(tmp_path / "x")]
     for extra in (["--multi-pod"], ["--profile", "fsdp"],
-                  ["--ep-axis", "data"], ["--skip-collectives"]):
-        with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+                  ["--ep-axis", "data"], ["--profile", "dp", "--multi-pod"]):
+        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
             dryrun.main(base + extra)
-    assert not (tmp_path / "x" / "olmo-1b_decode_32k_1.json").exists()
+    assert not (tmp_path / "x").exists() or not os.listdir(tmp_path / "x")
+
+
+def test_a_failed_combo_is_reported_and_the_sweep_goes_on(monkeypatch,
+                                                          tmp_path, capsys):
+    """``main``'s sweep reports a combo's error in its FAILURES list,
+    writes no file for it, traces the others and exits 1; the refusal of
+    a mesh option is raised."""
+    def boom(arch, shape, **kw):
+        if arch == "olmo-1b":
+            raise ValueError(f"no rule for {arch}")
+        return {"arch": arch, "shape": shape}
+
+    monkeypatch.setattr(dryrun, "lower_combo", boom)
+    with pytest.raises(SystemExit) as e:
+        dryrun.main(["--all", "--out", str(tmp_path)])
+    assert e.value.code == 1
+    names = sorted(os.listdir(tmp_path))
+    assert len(names) == len(configs.ARCH_IDS) * len(INPUT_SHAPES) - len(
+        INPUT_SHAPES)
+    assert not any(n.startswith("olmo-1b_") for n in names)
+    assert "('olmo-1b', 'decode_32k', 'no rule for olmo-1b')" in \
+        capsys.readouterr().out
+
+    def refuse(arch, shape, **kw):
+        dryrun._refuse("the multi-pod mesh")
+
+    monkeypatch.setattr(dryrun, "lower_combo", refuse)
+    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+        dryrun.main(["--all", "--out", str(tmp_path / "y")])
