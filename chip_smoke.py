@@ -75,46 +75,50 @@ ROWS> with ROWS other than the main path's 128, which are listed), then:
      onboarding protocols as specs (6 seeds, phases of 304, request by
      request) held to the twin's bars, drift and good_cheap onboarding
      also against the twin's hand-rolled phase loops, arm for arm; (b) the
-     benchmarks' protocols at full size (1,824 requests, 20 seeds, fitted
+     benchmarks' protocols at half their phase (3 x 304 requests, 20
+     seeds, fitted
      priors, alpha 0.01, gamma 0.997): silent and recalibrated drift, the
-     0.75 regression and good_cheap onboarding, request by request and in
-     blocks of 256, each block run (and the silent drift request by
-     request) held to the "torch" oracle per segment (arm agreement >=
-     0.99, mean reward within 1e-3); (c) a silent drift under
-     Timeline((512, 1280), horizon=1792) on a padded horizon of 2048,
+     0.75 regression and good_cheap onboarding in blocks of 256 and the
+     silent drift also request by request, each run held to the "torch"
+     oracle per segment (arm agreement >= 0.99, mean reward within 1e-3);
+     (c) a silent drift under
+     Timeline((256, 512), horizon=768) on a padded horizon of 1024,
      identical to the retimed spec's run in blocks of 256 and request by
      request. linucb_step's counters are zeroed before the phase; its
      launches by route must equal what the specs imply (ceil(L / B)
      blocks a segment, padded steps included);
  11. runs the sweep fabric (core/sweep.py, montecarlo.run_monte_carlo)
-     at the JAX benchmarks' sizes: (a) Fig. 1's seven ceilings plus 1.0 x
+     at the JAX benchmarks' grids on the first 512 requests of each
+     split: (a) Fig. 1's seven ceilings plus 1.0 x
      20 seeds as one stack of 160 states (alpha 0.01, gamma 0.997, fitted
-     priors, the test split), per request (conditions 1.0e-4, 3.0e-4 and
-     1.0 identical to looped evaluate.run calls) and in blocks of 256
-     (all eight identical to their looped runs; chunk_size=40 and a split
-     over devices [cuda:0, cuda:0] identical to the whole stack); (b) the
-     knee grid, 28 (alpha, gamma) cells x 5 budgets x 10 seeds = 1,400
-     states per request on the val split with per-cell n_eff, three
-     conditions identical to looped runs, each cell's AUC; (c) the
-     timeline Monte Carlo, 1,024 sampled timelines of a 240-step spec as
-     one stack, 16 probes identical to run_scenario on their retimed
-     specs, a resampled set through the same cached runner, the bands.
+     priors, the test split), per request (condition 1.0e-4 identical to
+     a looped evaluate.run call) and in blocks of 256 (conditions 1.0e-4,
+     6.6e-4 and 1.0 identical to their looped runs; chunk_size=40 and a
+     split over devices [cuda:0, cuda:0] identical to the whole stack);
+     (b) the knee grid, 28 (alpha, gamma) cells x 5 budgets x 10 seeds =
+     1,400 states per request on the val split with per-cell n_eff, one
+     condition inside the stack identical to its looped run, each cell's
+     AUC; (c) the timeline Monte Carlo, 1,024 sampled timelines of a
+     240-step spec as one stack, 4 probes identical to run_scenario on
+     their retimed specs, a resampled set through the same cached runner,
+     the bands.
      Each grid and its looped runs print wall s and decisions/s;
      linucb_step's counters are zeroed before the phase and its launches
      by route must equal what the grids imply (one single launch per
      step per sub-stack, ceil(T / 256) pdl launches per run in blocks);
  12. runs the tenant plane (core/tenancy.py through evaluate, sweep, the
      gateway and snapshot persistence) on the test bed of the JAX
-     package's benchmarks/bench_tenants.py at its smoke sizes: prices of
+     package's benchmarks/bench_tenants.py (its smoke size for the
+     compliance gate, shorter streams for the identities): prices of
      1e-4 / 3e-4 / 1e-3 per request, fitted priors, alpha 0.01, gamma
      0.997, no forced pulls, the "torch" backend (tenant mode refuses
      the kernels, as the JAX package's Pallas kernels do), blocks of 64
      under the flash-crowd mix: (a) fold identity at T = 8 and T = 64
-     (n 4,096, seeds 0 and 1), every (seed, tenant) row's lam, c_ema,
+     (n 1,024, seeds 0 and 1), every (seed, tenant) row's lam, c_ema,
      pulls and spend equal bit for bit to the grouped single-tenant
      fold; (b) T = 4 compliance (n 32,768, 8 seeds), every tenant's
      steady-state deviation <= 0.004; (c) a fleet grid of 3 tables x 4
-     seeds (n 4,096) as one run_grid call, identical to the three looped
+     seeds (n 1,024) as one run_grid call, identical to the three looped
      evaluate.run calls, both walls printed; (d) a tenanted gateway (T =
      4, 32 windows of 16, feedback and learning), saved and restored
      with elapsed 50: the restored state equals decay_on_restore of the
@@ -170,8 +174,9 @@ ROWS> with ROWS other than the main path's 128, which are listed), then:
      within 2x of what the plain routes differ by) and the kernel route on
      bf16 caches (max |d logit|, top-1 agreement printed); mamba2-370m's
      decode on an fp8 conv state raises ValueError, as the JAX package's
-     does; (c) launch/dryrun's lower_combo for the trio at decode_32k with
-     and without fp8 caches and olmo-1b at train_4k, then the dry run of
+     does; (c) launch/dryrun's step_cost (the one-device trace) for the
+     trio at decode_32k with and without fp8 caches and olmo-1b at
+     train_4k, then the dry run of
      olmo-1b FULL bf16 held against the card: a decode step at B 8, W
      4,096 on fp8 caches and prefill_forward at (1, 2,048), the arguments'
      bytes equal to the real ones, the predicted peak within 2x of the
@@ -207,18 +212,20 @@ ROWS> with ROWS other than the main path's 128, which are listed), then:
      the rules can be applied on the card; (b)'s offsets are the check of
      their multi-axis semantics. Each process group is destroyed before
      the next.
- 18. runs the dry run on the production mesh without collectives
-     (launch/dryrun.py, collectives=False: --skip-collectives) on meta
-     tensors, in the fake world of 512 ranks it starts and destroys
-     itself: olmo-1b and mamba2-370m x decode_32k on 16 x 16 (tp) and
-     dbrx-132b x decode_32k on 2 x 16 x 16 with the experts on 'data'.
-     Each one's per-device argument bytes, read from the local shards of
-     this torch's DTensor trace, must equal the shard-shape sum of its
-     placed arguments, and olmo-1b's and mamba2-370m's XLA's
-     (2,441,674,788 and 365,081,764); collectives {} and
-     wire bytes 0. Prints the trace seconds and the temp bytes (`[mesh]`);
-     the five kernels' counters are zeroed before the phase and must read
-     0 after it.
+ 18. runs the dry run on the production mesh with the collective
+     estimate (launch/dryrun.py's default, JAX's) on meta tensors, in the
+     fake world of 512 ranks it starts and destroys itself: olmo-1b and
+     mamba2-370m x decode_32k on 16 x 16 (tp) and dbrx-132b x decode_32k
+     on 2 x 16 x 16 with the experts on 'data'. Each one's per-device
+     argument bytes, read from the local shards of this torch's DTensor
+     trace, must equal the shard-shape sum of its placed arguments, and
+     olmo-1b's and mamba2-370m's XLA's (2,441,674,788 and 365,081,764);
+     the collective counter must meet no op it has no kind for (it
+     raises); the wire bytes per device, five kinds, are printed beside
+     the CPU's pin (MESH_WIRE_BYTES) and XLA's, and olmo-1b's and
+     mamba2-370m's must be within WIRE_FACTOR of XLA's. Prints the trace
+     seconds and the temp bytes (`[mesh]`); the five kernels' counters
+     are zeroed before the phase and must read 0 after it.
 
 Prints the script's wall, the kernels JSON line, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -283,20 +290,30 @@ BUDGET_TIGHT, BUDGET_MODERATE = 3.0e-4, 6.6e-4
 PARETO_HYPER = dict(alpha=0.01, gamma=0.997)
 TWIN_SEEDS, TWIN_PHASE = tuple(range(6)), 304
 SCENARIO_BLOCK = 256
+# The oracle protocols (b) and the timeline identity (c) run at half the
+# benchmarks' phase, to keep the script inside its time limit: 304 = 256
+# + 48 still gives every segment a whole block and a ragged one, and
+# neither the oracle's agreement nor the identity depends on the length.
+SCENARIO_PHASE = PHASE // 2
 
 # The sweep phase's grids, copied from the JAX package's benchmarks:
 # bench_pareto.py:20,36 (seven ceilings plus the unconstrained 1.0, 20
 # seeds), bench_knee.py:45-52,86-135 (the (alpha, gamma) cells, the AUC
 # budgets, 10 seeds, the val split, n_eff from T_adapt = 500 by Eq. 13)
 # and bench_scenarios.py:320-333,357-359 (the Monte Carlo spec at T = 240,
-# 1,024 timelines drawn with seed 11, horizons (180, 240), seeds (0,), a
-# probe of 16).
+# 1,024 timelines drawn with seed 11, horizons (180, 240), seeds (0,)).
+# The benchmark probes 16 timelines against their retimed specs; the
+# script probes 4, one from each quarter of the stack, and one condition
+# of each grid per request, to stay inside its time limit. The Fig. 1
+# and knee grids run on the first SWEEP_N requests of their splits: a
+# grid equals its looped runs at any length.
 BUDGET_SWEEP = (1.0e-4, 2.3e-4, 3.0e-4, 6.6e-4, 1.0e-3, 1.9e-3, 4.0e-3)
 KNEE_ALPHAS = (0.005, 0.01, 0.05, 0.1)
 KNEE_GAMMAS = (0.994, 0.995, 0.996, 0.997, 0.998, 0.999, 1.0)
 KNEE_BUDGETS = (1.0e-4, 3.0e-4, 6.6e-4, 1.9e-3, 6.0e-3)
 KNEE_SEEDS, KNEE_T_ADAPT = tuple(range(10)), 500.0
-MC_T, MC_N, MC_SEED, MC_PROBE = 240, 1024, 11, 16
+MC_T, MC_N, MC_SEED, MC_PROBE = 240, 1024, 11, 4
+SWEEP_N = 512
 
 # The tenant phase's test bed, copied from the JAX package's
 # benchmarks/bench_tenants.py:50-53 (CFG, PRICES_PER_REQ, BUDGETS_T4,
@@ -311,6 +328,11 @@ TENANT_BAND = (1.8e-4, 2.8e-4)
 COMPLIANCE_LINE = 0.004
 TENANT_BLOCK = 64
 TENANT_SCALES = (1.0, 1.25, 1.5)
+# The fold identity's and the fleet grid's stream: an eighth of
+# bench_tenants.py's smoke size (8,192), to keep the script inside its
+# time limit; neither identity depends on n. The T = 4 compliance gate
+# keeps the smoke size (32,768): its steady state needs the length.
+TENANT_N = 1024
 GATEWAY_WINDOWS, GATEWAY_WINDOW, RESTORE_ELAPSED = 32, 16, 50
 RESTORE_TOL = 1e-6
 
@@ -396,7 +418,7 @@ def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
     return start.elapsed_time(end) / (calls * replays)
 
 
-def host_ms(fns, reps: int = 7):
+def host_ms(fns, reps: int = 3):
     """Least host-clock time (ms, synchronised) of each of ``fns``, taken
     in turns so that drift hits them alike."""
     import torch
@@ -1198,7 +1220,7 @@ PORTED_KERNELS = ("flash_wgmma_kernel", "flash_kernel", "decode_split_kernel",
 def trace_request(model, text, extra=None):
     """Host ms of prefill, of one decode token and of one whole request
     (prefill + 8 tokens; ``generate``, or ``generate_greedy`` with
-    ``extra`` prefill inputs), each the least of 7 synchronised calls;
+    ``extra`` prefill inputs), each the least of 3 synchronised calls;
     then the request once under torch.profiler for its device busy ms and
     the ported kernels' share of device time (flash_attention,
     decode_attention, ssd_scan). The idle share is 1 - busy / the
@@ -1384,32 +1406,36 @@ def scenario_phase(bench, priors):
     print("[scenario] twin bars met; drift and good_cheap onboarding equal "
           "their hand-rolled loops arm for arm")
 
-    # (b) The benchmarks' protocols at full size against the oracle.
+    # (b) The benchmarks' protocols at SCENARIO_PHASE against the oracle.
     pareto = RouterConfig(hyper=HyperParams(**PARETO_HYPER))
     oracle = RouterConfig(backend="torch", hyper=HyperParams(**PARETO_HYPER))
     drift_spec = lambda recal: ScenarioSpec(  # noqa: E731
-        horizon=3 * PHASE, events=(
-            PriceChange(PHASE, GEMINI, PRICE_MULT, recalibrate=recal),
-            PriceChange(2 * PHASE, GEMINI, 1.0, recalibrate=recal)),
+        horizon=3 * SCENARIO_PHASE, events=(
+            PriceChange(SCENARIO_PHASE, GEMINI, PRICE_MULT,
+                        recalibrate=recal),
+            PriceChange(2 * SCENARIO_PHASE, GEMINI, 1.0, recalibrate=recal)),
         stream_seed_base=1000, replay=((2, 0),))
     protocols = [
         ("drift silent", drift_spec(False), test, BUDGET_TIGHT, pri3),
         ("drift recalibrated", drift_spec(True), test, BUDGET_TIGHT, pri3),
-        ("regression 0.75", ScenarioSpec(horizon=3 * PHASE, events=(
-            QualityShift(PHASE, MISTRAL, 0.75),
-            QualityShift(2 * PHASE, MISTRAL, None)), stream_seed_base=2000,
+        ("regression 0.75", ScenarioSpec(
+            horizon=3 * SCENARIO_PHASE, events=(
+                QualityShift(SCENARIO_PHASE, MISTRAL, 0.75),
+                QualityShift(2 * SCENARIO_PHASE, MISTRAL, None)),
+            stream_seed_base=2000,
             replay=((2, 0),)), test, BUDGET_MODERATE, pri3),
         ("onboarding good_cheap", ScenarioSpec(
-            horizon=3 * PHASE, events=(AddArm(PHASE, FLASH),),
+            horizon=3 * SCENARIO_PHASE,
+            events=(AddArm(SCENARIO_PHASE, FLASH),),
             segment_seeds=(3000, 4000), init_active=3),
          simulator.extend_with_flash(test, "good_cheap"), BUDGET_MODERATE,
          pri4),
     ]
     for label, spec, env, budget, pri in protocols:
-        for bs in (None, SCENARIO_BLOCK):
+        sizes = ((None, SCENARIO_BLOCK) if label == "drift silent"
+                 else (SCENARIO_BLOCK,))
+        for bs in sizes:
             got = run(pareto, spec, env, budget, SEEDS, bs, pri, label)
-            if bs is None and label != "drift silent":
-                continue
             ref = run(oracle, spec, env, budget, SEEDS, bs, pri,
                       f"{label} (oracle)", fused=False)
             for j in range(got.n_segments):
@@ -1422,11 +1448,11 @@ def scenario_phase(bench, priors):
                 assert agree >= 0.99 and dr <= 1e-3, (label, bs, j)
 
     # (c) Timeline identity: the masked runner against the retimed spec.
-    spec = ScenarioSpec(horizon=8 * SCENARIO_BLOCK, events=(
-        PriceChange(PHASE, GEMINI, PRICE_MULT),
-        PriceChange(2 * PHASE, GEMINI, 1.0)), stream_seed_base=1000)
-    tl = Timeline((2 * SCENARIO_BLOCK, 5 * SCENARIO_BLOCK),
-                  horizon=7 * SCENARIO_BLOCK)
+    spec = ScenarioSpec(horizon=4 * SCENARIO_BLOCK, events=(
+        PriceChange(SCENARIO_PHASE, GEMINI, PRICE_MULT),
+        PriceChange(2 * SCENARIO_PHASE, GEMINI, 1.0)), stream_seed_base=1000)
+    tl = Timeline((SCENARIO_BLOCK, 2 * SCENARIO_BLOCK),
+                  horizon=3 * SCENARIO_BLOCK)
     for bs in (SCENARIO_BLOCK, None):
         masked = run(pareto, spec, test, BUDGET_TIGHT, SEEDS, bs, pri3,
                      "timeline", timeline=tl)
@@ -1477,7 +1503,8 @@ def sweep_pareto(bench, priors, expect):
 
     cfg = RouterConfig(hyper=HyperParams(**PARETO_HYPER))
     assert cfg.backend == "fused"
-    test, budgets = bench.test, BUDGET_SWEEP + (1.0,)
+    test = bench.test.subset(np.arange(SWEEP_N))
+    budgets = BUDGET_SWEEP + (1.0,)
     C, T = len(budgets), test.n
     kw = dict(seeds=SEEDS, priors=priors, n_eff=N_EFF)
 
@@ -1493,17 +1520,14 @@ def sweep_pareto(bench, priors, expect):
         assert np.isfinite(res.rewards).all() and np.isfinite(res.costs).all()
         print(f"[sweep] pareto budget {b}: compliance "
               f"{res.compliance(b):.6f}, mean reward {res.mean_reward:.6f}")
-    looped = 0.0
-    for b in (1.0e-4, 3.0e-4, 1.0):
-        ref, secs = _timed(lambda: evaluate.run(cfg, test, b, **kw))
-        launches(1, None)
-        looped += secs
-        _identical(grid.condition(budgets.index(b)), ref, ("per request", b))
-        _wall(f"pareto looped evaluate.run per request at {b}", secs,
-              ref.arms.size)
-    print(f"[sweep] pareto per request: conditions 1.0e-4, 3.0e-4, 1.0 "
-          f"identical to their looped runs; looped wall of the 3 "
-          f"{looped:.3f} s")
+    b = BUDGET_SWEEP[0]
+    ref, secs = _timed(lambda: evaluate.run(cfg, test, b, **kw))
+    launches(1, None)
+    _identical(grid.condition(0), ref, ("per request", b))
+    _wall(f"pareto looped evaluate.run per request at {b}", secs,
+          ref.arms.size)
+    print(f"[sweep] pareto per request: condition {b} identical to its "
+          f"looped run")
 
     bs = SCENARIO_BLOCK
     grid, secs = _timed(lambda: sweep.run_grid(cfg, test, budgets,
@@ -1511,15 +1535,16 @@ def sweep_pareto(bench, priors, expect):
     launches(1, bs)
     _wall(f"pareto grid {C} x {len(SEEDS)} in blocks of {bs}", secs,
           grid.arms.size)
-    looped = 0.0
-    for i, b in enumerate(budgets):
-        ref, secs = _timed(lambda: evaluate.run(cfg, test, b, batch_size=bs,
-                                                **kw))
+    looped, probe = 0.0, (0, 3, C - 1)
+    for i in probe:
+        ref, secs = _timed(lambda: evaluate.run(cfg, test, budgets[i],
+                                                batch_size=bs, **kw))
         launches(1, bs)
         looped += secs
-        _identical(grid.condition(i), ref, ("blocks", b))
-    _wall(f"pareto looped evaluate.run in blocks of {bs}, all {C}", looped,
-          grid.arms.size)
+        _identical(grid.condition(i), ref, ("blocks", budgets[i]))
+    _wall(f"pareto looped evaluate.run in blocks of {bs}, conditions "
+          f"{[budgets[i] for i in probe]}", looped,
+          len(probe) * ref.arms.size)
     chunked, secs = _timed(lambda: sweep.run_grid(
         cfg, test, budgets, batch_size=bs, chunk_size=40, **kw))
     launches(C * len(SEEDS) // 40, bs)
@@ -1532,8 +1557,8 @@ def sweep_pareto(bench, priors, expect):
     _identical(split, grid, "devices=[cuda:0, cuda:0]")
     _wall(f"pareto grid in blocks of {bs}, split over [cuda:0, cuda:0]", secs,
           grid.arms.size)
-    print(f"[sweep] pareto blocks of {bs}: all {C} conditions identical to "
-          f"their looped runs; chunk_size=40 and the two-part split "
+    print(f"[sweep] pareto blocks of {bs}: {len(probe)} conditions identical "
+          f"to their looped runs; chunk_size=40 and the two-part split "
           f"identical to the whole stack")
 
 
@@ -1547,7 +1572,7 @@ def sweep_knee(bench, priors, expect):
     from repro_torch.core import evaluate, knee, sweep, warmup
     from repro_torch.core.types import HyperParams, RouterConfig
 
-    cfg, val = RouterConfig(), bench.val
+    cfg, val = RouterConfig(), bench.val.subset(np.arange(SWEEP_N))
     cells = [(a, g) for a in KNEE_ALPHAS for g in KNEE_GAMMAS]
     nb = len(KNEE_BUDGETS)
     n_effs = [warmup.t_adapt_to_n_eff(KNEE_T_ADAPT, g) for _, g in cells]
@@ -1564,22 +1589,19 @@ def sweep_knee(bench, priors, expect):
     _wall(f"knee grid {len(budgets)} x {len(KNEE_SEEDS)} = "
           f"{len(budgets) * len(KNEE_SEEDS)} states per request", secs,
           grid.arms.size)
-    looped = 0.0
-    for i in (0, 7 * nb + 2, len(budgets) - 1):
-        a, g = cells[i // nb]
-        ref, secs = _timed(lambda: evaluate.run(
-            RouterConfig(hyper=HyperParams(alpha=a, gamma=g)), val,
-            budgets[i], seeds=KNEE_SEEDS, priors=priors,
-            n_eff=n_effs[i // nb]))
-        for r, n in step_launches([val.n], None).items():
-            expect[r] += n
-        looped += secs
-        _identical(grid.condition(i), ref, ("knee", a, g, budgets[i]))
-        _wall(f"knee looped evaluate.run alpha={a} gamma={g} "
-              f"budget={budgets[i]}", secs, ref.arms.size)
-    print(f"[sweep] knee: conditions 0, {7 * nb + 2}, {len(budgets) - 1} "
-          f"identical to their looped runs (looped wall of the 3 "
-          f"{looped:.3f} s)")
+    # One cell inside the stack, with another alpha, gamma, budget and
+    # n_eff than its neighbours.
+    i = 7 * nb + 2
+    a, g = cells[i // nb]
+    ref, secs = _timed(lambda: evaluate.run(
+        RouterConfig(hyper=HyperParams(alpha=a, gamma=g)), val,
+        budgets[i], seeds=KNEE_SEEDS, priors=priors, n_eff=n_effs[i // nb]))
+    for r, n in step_launches([val.n], None).items():
+        expect[r] += n
+    _identical(grid.condition(i), ref, ("knee", a, g, budgets[i]))
+    _wall(f"knee looped evaluate.run alpha={a} gamma={g} "
+          f"budget={budgets[i]}", secs, ref.arms.size)
+    print(f"[sweep] knee: condition {i} identical to its looped run")
     aucs = {}
     for c, (a, g) in enumerate(cells):
         runs = [grid.condition(c * nb + j) for j in range(nb)]
@@ -1726,7 +1748,7 @@ def _tenant_wall(label, secs, decisions):
           f"{decisions / secs:.1f}")
 
 
-def tenant_fold_identity(T, n=4096, seeds=(0, 1)):
+def tenant_fold_identity(T, n=TENANT_N, seeds=(0, 1)):
     """Phase 12 (a): every (seed, tenant) row of the fleet's final table
     equals folding that tenant's cost subsequence through the
     single-tenant pacer_update_batch on the card, bit for bit; spend the
@@ -1787,12 +1809,9 @@ def tenant_compliance(n=32768, T=4, seeds=tuple(range(8))):
     return res.arms.size, secs
 
 
-def tenant_fleet_grid(n=4096, seeds=tuple(range(4))):
+def tenant_fleet_grid(n=TENANT_N, seeds=tuple(range(4))):
     """Phase 12 (c): a (tenant-table x seed) fleet grid as one run_grid
-    call against the looped evaluate.run calls: identical, both walls.
-    n is half bench_tenants.py's smoke size (8,192), to keep the script
-    inside its time limit with phase 13; the identity does not depend
-    on n."""
+    call against the looped evaluate.run calls: identical, both walls."""
     import numpy as np
 
     from repro_torch.core import evaluate, sweep, tenancy
@@ -1832,7 +1851,7 @@ def tenant_gateway():
     from repro_torch.serving.gateway import MicroBatcher, RouterGateway
 
     n = GATEWAY_WINDOWS * GATEWAY_WINDOW
-    env, priors = tenant_testbed(4096)
+    env, priors = tenant_testbed(TENANT_N)
     cfg = tenant_cfg()
     state = evaluate.make_states(
         cfg, env, 1.0, (0,), priors=priors, n_eff=N_EFF,
@@ -1912,7 +1931,7 @@ def tenant_phase():
     walls["gateway"] = tenant_gateway()
     # The kernels take one dual per state: a tenant block on "fused" is
     # refused before it launches anything, as in the JAX package.
-    env, _priors = tenant_testbed(4096)
+    env, _priors = tenant_testbed(TENANT_N)
     st = evaluate.make_states(tenant_cfg("fused"), env, 1.0, (0,),
                               tenants=tenancy.make_table(tenant_budgets(4)))
     X = torch.as_tensor(env.contexts[None, :8], dtype=torch.float32,
@@ -2502,19 +2521,35 @@ def fp8_path(stream):
     return params, launches
 
 
-def _dry_line(r):
-    m = r["memory"]
+def _dry_line(arch, shape_name, kv_dtype=""):
+    """One ``[dryrun]`` line: ``step_cost``'s trace of the FULL config on
+    one device (the numbers phase 15 holds against the card), with its
+    roofline terms on one H100."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.configs.shapes import INPUT_SHAPES, variant_for_shape
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import roofline as rl
+
+    shape = INPUT_SHAPES[shape_name]
+    cfg = variant_for_shape(configs.get_config(arch), shape)
+    if kv_dtype:
+        cfg = dataclasses.replace(cfg, kv_dtype=kv_dtype)
+    t0 = time.perf_counter()
+    c = dryrun.step_cost(cfg, shape)
+    trace_s = time.perf_counter() - t0
+    terms = rl.roofline_terms(c.flops, c.hbm_bytes, 0.0)
     return json.dumps({
-        "arch": r["arch"], "shape": r["shape"],
-        "kv_dtype": r["variant"]["kv_dtype"], "flops": r["flops_per_device"],
-        "matmul_flops": r["dot_flops_per_device"],
-        "flop_counter": r["flop_counter"]["flops"],
-        "hbm_bytes": r["hbm_bytes_per_device"], "compute_s": r["compute_s"],
-        "memory_s": r["memory_s"], "dominant": r["dominant"],
-        "bound_s": r["bound_s"], "argument_bytes": m["argument_bytes"],
-        "temp_bytes": m["temp_bytes"], "peak_bytes": m["peak_bytes"],
-        "useful_flops_ratio": r["useful_flops_ratio"],
-        "trace_s": round(r["trace_s"], 3)})
+        "arch": arch, "shape": shape_name, "kv_dtype": kv_dtype,
+        "flops": c.flops, "matmul_flops": c.dot_flops,
+        "flop_counter": c.flop_counter, "hbm_bytes": c.hbm_bytes,
+        "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+        "dominant": terms["dominant"], "bound_s": terms["bound_s"],
+        "argument_bytes": c.argument_bytes, "temp_bytes": c.temp_bytes,
+        "peak_bytes": c.argument_bytes + c.output_bytes + c.temp_bytes,
+        "useful_flops_ratio": rl.model_flops(cfg, shape) / max(c.flops, 1.0),
+        "trace_s": round(trace_s, 3)})
 
 
 def _held(label, fn, args, pred, smi):
@@ -2573,8 +2608,7 @@ def dryrun_phase(params, smi):
     for arch in ("olmo-1b", "mamba2-370m", "deepseek-67b"):
         for kv in ("", "float8_e4m3fn"):
             try:
-                r = dryrun.lower_combo(arch, "decode_32k", kv_dtype=kv,
-                                       verbose=False)
+                line = _dry_line(arch, "decode_32k", kv)
             except ValueError as e:
                 # An fp8 conv state: the JAX dry run raises here too.
                 assert kv and configs.get_config(arch).arch_type in (
@@ -2582,9 +2616,8 @@ def dryrun_phase(params, smi):
                 print(f"[dryrun] {arch} decode_32k {kv}: ValueError, as the "
                       f"JAX dry run's TypePromotionError: {e}")
                 continue
-            print(f"[dryrun] {_dry_line(r)}")
-    train = dryrun.lower_combo("olmo-1b", "train_4k", verbose=False)
-    print(f"[dryrun] {_dry_line(train)}")
+            print(f"[dryrun] {line}")
+    print(f"[dryrun] {_dry_line('olmo-1b', 'train_4k')}")
 
     cfg = dataclasses.replace(configs.get_config("olmo-1b"),
                               kv_dtype="float8_e4m3fn")
@@ -2893,15 +2926,34 @@ MESH_DRYRUN = (("olmo-1b", "decode_32k", False, "tp", "model"),
 # XLA's argument_size_in_bytes of the JAX dry run of the same combos on
 # the 16 x 16 mesh (JAX 0.9.0 on the CPU, --skip-collectives).
 XLA_ARGUMENT_BYTES = {"olmo-1b": 2_441_674_788, "mamba2-370m": 365_081_764}
+# The collective estimate's wire bytes per device of the same combos, as
+# the CPU's torch counts them (tests/test_torch_dryrun_mesh.py holds the
+# CPU to these); the card's torch may place a collective otherwise, which
+# the phase prints beside the pin. XLA's, where JAX compiles the combo
+# (JAX 0.9.0 on the CPU, with collectives): 9,000,960 and 7,412,544.
+MESH_WIRE_BYTES = {"olmo-1b": 8_786_400.0, "mamba2-370m": 9_311_520.0,
+                   "dbrx-132b": 359_227_346.0}
+# How far the card's torch may put each estimate from the CPU's pin,
+# either way: the dense decode equal to the byte; torch 2.11 gathers 128
+# bytes a layer more in the SSM decode (ssm.py, ``xs * D``) and, an open
+# fault (ROADMAP.md section 3), the MoE dispatch's buffer and routed
+# copies whole, 1.73x dbrx-132b's pin.
+CARD_PIN_FACTOR = {"olmo-1b": 1.0, "mamba2-370m": 1.001, "dbrx-132b": 2.0}
+XLA_WIRE_BYTES = {"olmo-1b": 9_000_960.0, "mamba2-370m": 7_412_544.0}
+# How far the port's wire bytes may be from XLA's, either way.
+WIRE_FACTOR = 3.0
 
 
 def mesh_dryrun_phase(smi):
-    """Phase 18: the dry run on the production mesh without collectives
-    (--skip-collectives), in the fake world of 512 ranks it starts itself:
-    each combo's per-device argument bytes, read from the DTensor trace's
+    """Phase 18: the dry run on the production mesh with the collective
+    estimate, in the fake world of 512 ranks it starts itself: each
+    combo's per-device argument bytes, read from the DTensor trace's
     local shards on this torch, must equal the shard-shape sum of its
-    placed arguments (and, for olmo-1b and mamba2-370m, XLA's). Returns
-    the results."""
+    placed arguments (and, for olmo-1b and mamba2-370m, XLA's); the
+    counter must meet no collective it has no kind for (it raises), and
+    the wire bytes are printed beside the CPU's pin and XLA's, within
+    CARD_PIN_FACTOR of the pin and WIRE_FACTOR of XLA's. Returns the
+    results."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -2913,8 +2965,8 @@ def mesh_dryrun_phase(smi):
     out = []
     for arch, shape, multi_pod, profile, ep_axis in MESH_DRYRUN:
         r = dryrun.lower_combo(arch, shape, multi_pod=multi_pod,
-                               collectives=False, profile=profile,
-                               ep_axis=ep_axis, verbose=False)
+                               profile=profile, ep_axis=ep_axis,
+                               verbose=False)
         assert not dist.is_initialized(), "the dry run left its world"
         with dryrun._world(dryrun.FAKE_WORLD):
             mesh = make_production_mesh(multi_pod=multi_pod)
@@ -2925,13 +2977,25 @@ def mesh_dryrun_phase(smi):
         assert m["argument_bytes"] == want, (arch, m["argument_bytes"], want)
         if arch in XLA_ARGUMENT_BYTES:
             assert want == XLA_ARGUMENT_BYTES[arch], (arch, want)
-        assert r["collectives"] == {} and r["wire_bytes_per_device"] == 0.0
+        wire = r["wire_bytes_per_device"]
+        assert wire > 0 and len(r["collectives"]) == 5, r["collectives"]
+        xla = XLA_WIRE_BYTES.get(arch)
+        if xla:
+            assert 1 / WIRE_FACTOR <= wire / xla <= WIRE_FACTOR, (arch, wire)
+        f = CARD_PIN_FACTOR[arch]
+        assert 1 / f <= wire / MESH_WIRE_BYTES[arch] <= f, (arch, wire)
         print("[mesh] " + json.dumps(dict(
             arch=arch, shape=shape, mesh=r["mesh"], n_chips=r["n_chips"],
             profile=profile, ep_axis=ep_axis,
             argument_bytes=m["argument_bytes"], shard_sum=want,
             output_bytes=m["output_bytes"], temp_bytes=m["temp_bytes"],
             flops_per_device=r["flops_per_device"],
+            wire_bytes_per_device=wire, cpu_pin=MESH_WIRE_BYTES[arch],
+            equal_cpu_pin=wire == MESH_WIRE_BYTES[arch],
+            xla_wire_bytes=xla, ratio_to_xla=(wire / xla if xla else None),
+            collectives={k: [c["count"], c["wire_bytes"]]
+                         for k, c in r["collectives"].items()},
+            collective_s=r["collective_s"], dominant=r["dominant"],
             trace_s=round(r["trace_s"], 3),
             mesh_trace_s=round(r["mesh_trace_s"], 3), card=smi)))
         out.append(r)
@@ -2955,6 +3019,10 @@ def main() -> int:
         return 2
     sys.path.insert(0, SRC)
     import numpy as np
+
+    def mark(phases):
+        print(f"[wall] phases {phases} done at "
+              f"{time.perf_counter() - start:.1f} s")
 
     from repro_torch.core import evaluate, router, simulator
     from repro_torch.core.types import RouterConfig
@@ -2995,6 +3063,7 @@ def main() -> int:
                    check_step(rng, 8, 256, 8, 128)]
     for c in score_checks + step_checks:
         print(f"[kernel] {json.dumps(c)}")
+    mark("1-2")
 
     # Phase 3: the main path at the paper's configuration.
     cfg = RouterConfig()
@@ -3098,6 +3167,7 @@ def main() -> int:
               f"{busy_ms:.3f} ms in {n_kernels} kernels (idle share "
               f"{1 - busy_ms / block_ms:.4f}), linucb_step's kernels "
               f"{ours_ms:.3f} ms")
+    mark("3-5")
 
     # Phase 6: the served models' kernels against their plain versions.
     from repro_torch.data import make_request_stream
@@ -3152,6 +3222,7 @@ def main() -> int:
     ]
     for c in flash_checks + decode_checks + ssd_checks:
         print(f"[kernel] {json.dumps(c)}")
+    mark("6")
 
     # Phase 7: the served path at full width. The served kernels' counters
     # are zeroed before the first generate of each arm.
@@ -3218,6 +3289,7 @@ def main() -> int:
     ssd_routes = dict(ssd_ops.ROUTE_LAUNCHES)
     print(f"[serve] ssd_scan launches by route: {ssd_routes}")
     assert ssd_routes["one_chunk"] == launches["ssd_scan"], ssd_routes
+    mark("7")
 
     # Phase 8: teacher-forced logits, kernel route against plain route.
     # In bf16, as served, the two routes' kernel outputs differ by a bf16
@@ -3246,6 +3318,7 @@ def main() -> int:
                 missed.append(f"{model.name} bf16: {err:.4e} > "
                               f"{TEACHER_BF16_FACTOR} x {plain_err:.4e}")
     assert not missed, f"kernel route and plain route disagree: {missed}"
+    mark("8")
 
     # Phase 9: where one served request's time goes, per arm.
     for model in arms:
@@ -3258,6 +3331,7 @@ def main() -> int:
               f"share {t['idle_share']:.4f}), ported kernels "
               f"{t['ported_ms']:.3f} ms ({t['ported_share']:.4f} of "
               f"device time): {json.dumps(t['ported_by_kernel'])}")
+    mark("9")
 
     # Phase 10: the scenario engine. linucb_step's counters are zeroed
     # just before the phase and read just after.

@@ -1,53 +1,50 @@
-"""Dry run: what each (architecture x input shape) step costs, traced on
-``meta`` tensors, so nothing is computed or allocated and no card is
-needed; on one H100, or per device of the production mesh.
+"""Dry run: what each (architecture x input shape) step costs on the
+production mesh, traced on ``meta`` tensors, so nothing is computed or
+allocated and no card is needed.
 
 For every (architecture x input shape) it builds the step the JAX
 package's dry run lowers (``make_train_step`` on a ``TrainState``,
 ``prefill_forward`` on the token batch, ``decode_step(impl="einsum")`` on
-the decode specs), traces it under ``costmodel.trace_cost`` (at two and
-three layer units, extrapolated to the full depth: ``step_cost``) and
-writes its FLOPs, HBM bytes, live memory and roofline terms, with the JAX
-dry run's result keys where they mean the same; its ``xla_cost_analysis``
-becomes ``flop_counter``, what ``torch.utils.flop_counter.FlopCounterMode``
-counts on the same trace.
-
-With no mesh option the run is one device: ``collectives`` is {} and the
-wire bytes 0, because one device has none. ``--skip-collectives``
-(``collectives=False``, the JAX dry run's "lowering proof only" pass)
-runs on the production mesh instead: 16 x 16 = 256 devices, or 2 x 16 x
-16 = 512 with ``--multi-pod``, under ``--profile tp|fsdp|dp`` and
-``--ep-axis model|data``, on a world of 512 ranks of
+the decode specs) and runs it on the production mesh, 16 x 16 = 256
+devices or 2 x 16 x 16 = 512 with ``--multi-pod``, under ``--profile
+tp|fsdp|dp`` and ``--ep-axis model|data``, in a world of 512 ranks of
 ``torch.distributed``'s fake backend when no world exists (the
-counterpart of JAX's 512 placeholder devices), destroyed at the end.
-There, as in JAX:
+counterpart of JAX's 512 placeholder devices), destroyed at the end. It
+writes the JAX dry run's result keys where they mean the same; its
+``xla_cost_analysis`` becomes ``flop_counter``, what
+``torch.utils.flop_counter.FlopCounterMode`` counts on the same trace.
 
-  * FLOPs and HBM bytes per device are the one-device trace's global
-    totals / ``n_chips``;
-  * ``collectives`` is {} and the wire bytes 0: the collectives are not
-    estimated in this pass;
-  * memory is per device. The step runs once more with its arguments
+  * FLOPs and HBM bytes per device are the global totals of a trace on
+    one device under ``costmodel.trace_cost`` (``step_cost``) / ``n_chips``.
+  * Memory is per device. The step runs once more with its arguments
     placed as DTensors on ``meta`` shards under the placement rules
     (``launch/sharding.py``; the state by ``_state_shardings``) and the
-    model's activation hints installed (``pspec.set_mesh``), at the same
-    two depths. ``argument_bytes`` is the bytes of rank 0's shards, the
-    sum of ``NamedSharding.shard_shape`` over the placed leaves, which is
-    XLA's ``argument_size_in_bytes``. ``output_bytes`` counts the
-    result's shards that are not arguments (a decode step's caches are
-    updated in place, so they count once, as arguments). ``temp_bytes``
-    is NOT XLA's number, which fuses and reuses buffers: it is the
-    high-water mark of the eager local storages alive at once, every
-    shard an op of the step created until it is freed (what DTensor
-    allocates inside one op to redistribute its inputs is not seen).
+    model's activation hints installed (``pspec.set_mesh``).
+    ``argument_bytes`` is the bytes of rank 0's shards, the sum of
+    ``NamedSharding.shard_shape`` over the placed leaves, which is XLA's
+    ``argument_size_in_bytes``. ``output_bytes`` counts the result's
+    shards that are not arguments (a decode step's caches are updated in
+    place, so they count once, as arguments). ``temp_bytes`` is NOT XLA's
+    number, which fuses and reuses buffers: it is the high-water mark of
+    the eager local storages alive at once, every shard an op of the step
+    created until it is freed (what DTensor allocates inside one op to
+    redistribute its inputs is not seen).
+  * ``collectives`` (``collective_estimate``) is counted on the same
+    placed trace: ``roofline.count_collectives`` sees each collective
+    DTensor issues for rank 0, by kind, with its result bytes and the
+    wire bytes per device of the JAX package's ring models;
+    ``wire_bytes_per_device`` feeds the roofline's collective term.
+    ``collectives=False`` (``--skip-collectives``, the JAX dry run's
+    "lowering proof only" pass) writes {} and 0 wire bytes.
 
-The collective estimate and the mesh runs with collectives (the mesh
-options without ``--skip-collectives``) raise ``NotImplementedError``
-(ROADMAP.md, queue 1 item 2).
+Both traces run at two and three layer units and are extrapolated to the
+full depth (``_depth_fit``), or trace the whole model at three units or
+fewer, so a run with collectives traces no more than one without.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch deepseek-7b --shape train_4k
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k --skip-collectives [--multi-pod] [--profile fsdp] [--ep-axis data]
-  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--skip-collectives [--multi-pod]] [--kv-dtype float8_e4m3fn] [--out DIR]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --arch olmo-1b --shape decode_32k [--multi-pod] [--profile fsdp] [--ep-axis data] [--skip-collectives]
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all [--multi-pod] [--kv-dtype float8_e4m3fn] [--out DIR]
 """
 from __future__ import annotations
 
@@ -83,26 +80,6 @@ OUT = "benchmarks/results/dryrun_torch"
 # The fake world a mesh run starts when none exists: JAX's 512
 # placeholder devices, which hold both production meshes.
 FAKE_WORLD = 512
-COLLECTIVES = ("needs the collective estimate (ROADMAP.md, queue 1 item "
-               "2); run it with --skip-collectives (collectives=False), "
-               "which writes no collectives")
-
-
-def _refuse(what: str) -> None:
-    raise NotImplementedError(f"{what} {COLLECTIVES}")
-
-
-def _refuse_mesh_options(multi_pod: bool, profile: str,
-                         ep_axis: str) -> None:
-    """A mesh option with collectives: the estimate is not ported."""
-    if multi_pod:
-        _refuse("the multi-pod mesh")
-    if profile != "tp":
-        _refuse(f"the {profile!r} sharding profile")
-    if ep_axis != "model":
-        _refuse(f"the expert axis on {ep_axis!r}")
-
-
 def _mesh_name(multi_pod: bool) -> str:
     return "2x16x16" if multi_pod else "16x16"
 
@@ -172,17 +149,28 @@ def _trace(cfg, shape, remat: bool, infer_dtype: str) -> costmodel.Cost:
     return costmodel.trace_cost(step, *args)[1]
 
 
-def _depth_fit(trace, cfg) -> costmodel.Cost:
+def _fit(lo, hi, k: int):
+    """The line through ``lo`` (at two units) and ``hi`` (at three),
+    at ``k`` units, of every count in a ``Cost``, a collectives dict or a
+    tuple of them."""
+    if isinstance(lo, costmodel.Cost):
+        return costmodel.Cost(**{
+            f.name: _fit(getattr(lo, f.name), getattr(hi, f.name), k)
+            for f in dataclasses.fields(costmodel.Cost)})
+    if isinstance(lo, dict):
+        return {n: _fit(lo[n], hi[n], k) for n in lo}
+    if isinstance(lo, tuple):
+        return tuple(_fit(a, b, k) for a, b in zip(lo, hi))
+    return lo + (hi - lo) * (k - 2)
+
+
+def _depth_fit(trace, cfg):
     """``trace(cfg)`` at ``cfg``'s depth; beyond three layer units, the
     traces at two and three units extrapolated linearly (``step_cost``)."""
     k_full = cfg.num_layers // _layer_unit(cfg)
     if k_full <= 3:
         return trace(cfg)
-    lo, hi = (trace(_depth_variant(cfg, k)) for k in (2, 3))
-    return costmodel.Cost(**{
-        f.name: getattr(lo, f.name) + (getattr(hi, f.name)
-                                       - getattr(lo, f.name)) * (k_full - 2)
-        for f in dataclasses.fields(costmodel.Cost)})
+    return _fit(*(trace(_depth_variant(cfg, k)) for k in (2, 3)), k_full)
 
 
 def step_cost(cfg, shape, remat: bool = True,
@@ -234,28 +222,65 @@ def argument_bytes(cfg, shape, mesh, infer_dtype: str = "",
 
 
 def _mesh_trace(cfg, shape, mesh, remat: bool, infer_dtype: str,
-                profile: str, ep_axis: str) -> costmodel.Cost:
-    """The step traced with its arguments placed on ``mesh``: a ``Cost``
-    whose memory counts are rank 0's local bytes. Tensors the step makes
-    from scratch (positions, masks) join as replicated."""
+                profile: str, ep_axis: str):
+    """The step traced with its arguments placed on ``mesh``: (a ``Cost``
+    whose memory counts are rank 0's local bytes, the collectives the
+    step issued). ``shard_tree`` places the arguments before the count
+    starts, as XLA's ``in_shardings`` place them before the program.
+    Tensors the step makes from scratch (positions, masks) join as
+    replicated."""
     step, args = _build_step(cfg, shape, remat, infer_dtype)
-    sh = _arg_shardings(mesh, cfg, shape, args, profile, ep_axis)
-    with implicit_replication():
-        cost = costmodel.trace_cost(step, *shard_lib.shard_tree(args, sh))[1]
+    placed = shard_lib.shard_tree(
+        args, _arg_shardings(mesh, cfg, shape, args, profile, ep_axis))
+    with rl.count_collectives() as colls, implicit_replication():
+        cost = costmodel.trace_cost(step, *placed)[1]
     # The placed tensors count the shards DTensor cut.
     cost.argument_bytes += _pos_bytes(shape)
-    return cost
+    return cost, colls
 
 
-def mesh_memory(cfg, shape, mesh, remat: bool = True, infer_dtype: str = "",
-                profile: str = "tp", ep_axis: str = "model"
-                ) -> costmodel.Cost:
-    """Per-device memory of the step on ``mesh`` (its argument, output and
-    temp bytes), at ``cfg``'s depth by ``step_cost``'s two-depth fit. The
-    caller installs the activation hints (``pspec.set_mesh``)."""
+def mesh_cost(cfg, shape, mesh, remat: bool = True, infer_dtype: str = "",
+              profile: str = "tp", ep_axis: str = "model"):
+    """(per-device memory of the step on ``mesh`` as a ``Cost``, its
+    collectives), at ``cfg``'s depth by ``step_cost``'s two-depth fit of
+    the same placed traces. The caller installs the activation hints
+    (``pspec.set_mesh``)."""
     return _depth_fit(lambda c: _mesh_trace(c, shape, mesh, remat,
                                             infer_dtype, profile, ep_axis),
                       cfg)
+
+
+def _estimate(colls, verbose: bool = False):
+    """JAX's clamps on a fitted collectives dict: result and wire bytes
+    at least 0. Returns (the dict, the total wire bytes), and prints the
+    estimate when ``verbose``."""
+    est = {kind: {"count": c["count"],
+                  "result_bytes": max(c["result_bytes"], 0.0),
+                  "wire_bytes": max(c["wire_bytes"], 0.0)}
+           for kind, c in colls.items()}
+    if verbose:
+        print("collective estimate (depth-extrapolated):",
+              {k: "%.3e" % v["wire_bytes"] for k, v in est.items()})
+    return est, sum(c["wire_bytes"] for c in est.values())
+
+
+def collective_estimate(cfg, shape, mesh, remat, verbose=False,
+                        profile="tp", infer_dtype="", ep_axis="model"):
+    """Per-device collective counts and bytes of the step on ``mesh``,
+    extrapolated over depth: (the five kinds' ``count``, ``result_bytes``
+    and ``wire_bytes``, the total wire bytes), JAX's ``collective_estimate``.
+
+    The collectives are those DTensor issues in ``_mesh_trace``, counted by
+    ``roofline.count_collectives``. Each count is fitted as a + b k, k the
+    depth in layer units, from the traces at two and three units, and
+    evaluated at the full depth (a model of three units or fewer is traced
+    whole); the bytes are clamped at 0. JAX compiles depths of one and two
+    units, with its layer scan unrolled, for this fit alone; the port's
+    layer loops are unrolled already, and two and three units are the
+    traces its memory fit runs (``mesh_cost``), so the same traces give
+    both. The caller installs the activation hints (``pspec.set_mesh``)."""
+    return _estimate(mesh_cost(cfg, shape, mesh, remat, infer_dtype,
+                               profile, ep_axis)[1], verbose)
 
 
 @contextlib.contextmanager
@@ -277,16 +302,16 @@ def _world(n: int):
         dist.destroy_process_group()
 
 
-def _mesh_cost(cfg, shape, multi_pod: bool, remat: bool, infer_dtype: str,
-               profile: str, ep_axis: str) -> costmodel.Cost:
+def _mesh_run(cfg, shape, multi_pod: bool, remat: bool, infer_dtype: str,
+              profile: str, ep_axis: str):
     n = 512 if multi_pod else 256
     with _world(n):
         mesh = make_production_mesh(multi_pod=multi_pod)
         set_mesh(mesh, shard_lib.activation_hint_specs(mesh, profile,
                                                        ep_axis))
         try:
-            return mesh_memory(cfg, shape, mesh, remat, infer_dtype,
-                               profile, ep_axis)
+            return mesh_cost(cfg, shape, mesh, remat, infer_dtype, profile,
+                             ep_axis)
         finally:
             set_mesh(None)
 
@@ -296,15 +321,13 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                 collectives: bool = True, profile: str = "tp",
                 kv_dtype: str = "", infer_dtype: str = "",
                 moe_groups: int = 0, ep_axis: str = "model") -> dict:
-    """The result dict of one (arch, shape) (or the documented skip).
+    """The result dict of one (arch, shape) on the production mesh
+    (``multi_pod``: 2 x 16 x 16, else 16 x 16), or the documented skip.
     Prints the analyses when ``verbose``.
 
-    ``collectives=False`` runs on the production mesh (``multi_pod``:
-    2 x 16 x 16, else 16 x 16) with no collective estimate, as the JAX dry
-    run's pass of that name; ``collectives=True`` is the one-device run,
-    which has no mesh option."""
-    if collectives:
-        _refuse_mesh_options(multi_pod, profile, ep_axis)
+    ``collectives=False`` writes no collective estimate (the JAX dry
+    run's pass of that name); the mesh trace runs either way, for the
+    memory."""
     shape = INPUT_SHAPES[shape_name]
     cfg = variant_for_shape(configs.get_config(arch), shape)
     if cfg is None:
@@ -315,18 +338,17 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
     if moe_groups:
         cfg = dataclasses.replace(cfg, moe_dispatch_groups=moe_groups)
 
+    n_chips = 512 if multi_pod else 256
+    mesh_name = _mesh_name(multi_pod)
     t0 = time.perf_counter()
     cost = step_cost(cfg, shape, remat, infer_dtype)
     t_trace = time.perf_counter() - t0
-    if collectives:
-        n_chips, mesh_name, mem_cost = 1, "1", cost
-    else:
-        n_chips = 512 if multi_pod else 256
-        mesh_name = _mesh_name(multi_pod)
-        t0 = time.perf_counter()
-        mem_cost = _mesh_cost(cfg, shape, multi_pod, remat, infer_dtype,
-                              profile, ep_axis)
-        t_mesh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mem_cost, colls = _mesh_run(cfg, shape, multi_pod, remat, infer_dtype,
+                                profile, ep_axis)
+    t_mesh = time.perf_counter() - t0
+    colls, wire = (_estimate(colls, verbose) if collectives
+                   else ({}, 0.0))
     mem = {"argument_bytes": mem_cost.argument_bytes,
            "output_bytes": mem_cost.output_bytes,
            "temp_bytes": mem_cost.temp_bytes,
@@ -343,36 +365,33 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
         "flops_per_device": cost.flops / n_chips,
         "hbm_bytes_per_device": cost.hbm_bytes / n_chips,
         "dot_flops_per_device": cost.dot_flops / n_chips,
-        "flop_counter": {"flops": (cost.flop_counter if collectives
-                                   else cost.flop_counter / n_chips)},
-        "collectives": {},
-        "wire_bytes_per_device": 0.0,
+        "flop_counter": {"flops": cost.flop_counter / n_chips},
+        "collectives": colls,
+        "wire_bytes_per_device": wire,
         "memory": mem,
         "active_params": cfg.active_params(),
         "total_params": cfg.total_params(),
         "model_flops_global": rl.model_flops(cfg, shape),
         "trace_s": t_trace,
+        "mesh_trace_s": t_mesh,
     }
-    if not collectives:
-        result["mesh_trace_s"] = t_mesh
     result["model_flops_per_device"] = result["model_flops_global"] / n_chips
     result["useful_flops_ratio"] = (
         result["model_flops_global"] / max(cost.flops, 1.0))
     result.update(rl.roofline_terms(result["flops_per_device"],
-                                    result["hbm_bytes_per_device"], 0.0))
+                                    result["hbm_bytes_per_device"], wire))
     if verbose:
-        where = "1 device" if collectives else mesh_name
-        print(f"== {arch} x {shape_name} ({where}) ==")
+        print(f"== {arch} x {shape_name} ({mesh_name}) ==")
         print("memory:", mem)
         print("FlopCounterMode: flops=%.3e; cost model: flops=%.3e "
               "(matmul %.3e) bytes=%.3e (global)" % (
                   cost.flop_counter, cost.flops, cost.dot_flops,
                   cost.hbm_bytes))
+        print("collective wire bytes/device: %.3e" % wire)
         print("roofline: compute %.4fs memory %.4fs collective %.4fs -> %s"
               % (result["compute_s"], result["memory_s"],
                  result["collective_s"], result["dominant"]))
-        print("trace %.1fs" % t_trace
-              + ("" if collectives else "; mesh trace %.1fs" % t_mesh),
+        print("trace %.1fs; mesh trace %.1fs" % (t_trace, t_mesh),
               flush=True)
     return result
 
@@ -383,14 +402,13 @@ def main(argv=None):
     ap.add_argument("--shape", choices=list(INPUT_SHAPES))
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="the 2x16x16 mesh (with --skip-collectives)")
+                    help="the 2x16x16 mesh")
     ap.add_argument("--no-remat", action="store_true")
     ap.add_argument("--skip-collectives", action="store_true",
-                    help="per device of the production mesh, no "
-                         "collective estimate (the lowering-proof pass)")
+                    help="no collective estimate (the lowering-proof "
+                         "pass)")
     ap.add_argument("--profile", default="tp", choices=("tp", "fsdp", "dp"),
-                    help="sharding profile; fsdp / dp need "
-                         "--skip-collectives")
+                    help="sharding profile")
     ap.add_argument("--kv-dtype", default="",
                     help="decode cache dtype override (e.g. float8_e4m3fn)")
     ap.add_argument("--infer-dtype", default="",
@@ -398,16 +416,11 @@ def main(argv=None):
     ap.add_argument("--moe-groups", type=int, default=0,
                     help="grouped MoE dispatch (see models/moe.py)")
     ap.add_argument("--ep-axis", default="model", choices=("model", "data"),
-                    help="mesh axis of the MoE experts; data needs "
-                         "--skip-collectives")
+                    help="mesh axis carrying the MoE expert dimension")
     ap.add_argument("--tag", default="",
                     help="suffix for result files (perf iterations)")
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args(argv)
-    collectives = not args.skip_collectives
-    if collectives:
-        # Raise before any combo runs, as lower_combo would for each.
-        _refuse_mesh_options(args.multi_pod, args.profile, args.ep_axis)
 
     if args.all:
         combos = [(a, s) for a in configs.ARCH_IDS for s in INPUT_SHAPES]
@@ -416,7 +429,7 @@ def main(argv=None):
     else:
         ap.error("--arch and --shape, or --all")
 
-    suffix = "1" if collectives else _mesh_name(args.multi_pod)
+    suffix = _mesh_name(args.multi_pod)
     os.makedirs(args.out, exist_ok=True)
     failures = []
     for arch, shape in combos:
@@ -430,12 +443,11 @@ def main(argv=None):
         try:
             res = lower_combo(
                 arch, shape, multi_pod=args.multi_pod,
-                remat=not args.no_remat, collectives=collectives,
+                remat=not args.no_remat,
+                collectives=not args.skip_collectives,
                 profile=args.profile, kv_dtype=args.kv_dtype,
                 infer_dtype=args.infer_dtype, moe_groups=args.moe_groups,
                 ep_axis=args.ep_axis)
-        except NotImplementedError:
-            raise
         except Exception as e:  # noqa: BLE001 - report and go on
             traceback.print_exc()
             failures.append((arch, shape, str(e)[:200]))

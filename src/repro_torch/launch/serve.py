@@ -18,7 +18,8 @@ frames that ``ServedModel.generate`` does not pass, so a request routed
 to it raises ``ValueError`` (the JAX driver fails there too).
 ``--dry-run`` runs ``python -m repro_torch.launch.dryrun`` for each arm
 at ``--shape`` (default ``decode_32k``), as the JAX driver does: the FULL
-configs traced on ``meta`` tensors, nothing allocated, no card needed.
+configs traced on ``meta`` tensors on the 16 x 16 production mesh with
+the collective estimate, nothing allocated, no card needed.
 """
 from __future__ import annotations
 

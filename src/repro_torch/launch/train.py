@@ -8,7 +8,8 @@ f32 master weights from seed 0, AdamW under a warmup-cosine schedule
 ``--ckpt PATH`` saves the final ``TrainState`` in the JAX package's
 checkpoint format. ``--dry-run`` runs ``python -m
 repro_torch.launch.dryrun --arch <id> --shape train_4k``, as the JAX
-driver does: the FULL config's train step traced on ``meta`` tensors.
+driver does: the FULL config's train step traced on ``meta`` tensors on
+the 16 x 16 production mesh with the collective estimate.
 """
 from __future__ import annotations
 

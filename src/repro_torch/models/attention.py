@@ -26,7 +26,9 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.pspec import gathered, grad_gathered, reshaped
+from repro_torch.models.pspec import (gathered, grad_gathered,
+                                      on_head_shards, reduced, reshaped,
+                                      softmax_last, write_slot)
 
 Tensor = torch.Tensor
 
@@ -140,7 +142,17 @@ def chunked_attention(
     package. Under autograd a block's scores are recomputed in the
     backward, as the JAX package's ``jax.checkpoint`` on its key/value
     step does: its backward recomputes each block's scores and
-    probabilities, and no other product."""
+    probabilities, and no other product. On a mesh it runs on each
+    device's shards of the batch and the heads (``pspec.on_head_shards``),
+    so no collective runs inside its loops, forward or backward."""
+    return on_head_shards(functools.partial(
+        _chunked, q_pos=q_pos, k_pos=k_pos, mode=mode, window=window,
+        q_block=q_block, kv_block=kv_block), q, k, v)
+
+
+def _chunked(q: Tensor, k: Tensor, v: Tensor, *, q_pos: Tensor,
+             k_pos: Tensor, mode: str, window: int, q_block: int,
+             kv_block: int) -> Tensor:
     B, S, H, hd = q.shape
     T, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -155,13 +167,9 @@ def chunked_attention(
     for i in range(0, S, q_block):
         q32 = q[:, i:i + q_block].float()
         qp = q_pos[i:i + q_block]
-        # The accumulators take q's placements on a mesh (zeros_like of a
-        # DTensor is sharded as it is; a fresh tensor would be replicated).
-        acc = torch.zeros_like(q32.transpose(1, 2),
-                               memory_format=torch.contiguous_format)
-        l_run = torch.zeros_like(acc[..., 0],
-                                 memory_format=torch.contiguous_format)
-        m_run = torch.full_like(l_run, NEG_INF)
+        m_run = torch.full((B, H, q_block), NEG_INF, device=q.device)
+        l_run = torch.zeros((B, H, q_block), device=q.device)
+        acc = torch.zeros((B, H, q_block, hd), device=q.device)
         for j in range(0, T, kv_block):
             kx = _expand_kv(k[:, j:j + kv_block], G).float()
             vx = _expand_kv(v[:, j:j + kv_block], G).float()
@@ -267,9 +275,10 @@ def decode_attention(
     posb = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     q = layers.apply_rope(q, posb, cfg.rope_theta)
     k_new = layers.apply_rope(k_new, posb, cfg.rope_theta)
+    # On a mesh that shards W, the shard holding the slot writes it.
     slot = pos % W
-    k_cache[:, slot] = layers.astype(k_new[:, 0], k_cache.dtype)
-    v_cache[:, slot] = layers.astype(v_new[:, 0], v_cache.dtype)
+    write_slot(k_cache, slot, layers.astype(k_new[:, 0], k_cache.dtype))
+    write_slot(v_cache, slot, layers.astype(v_new[:, 0], v_cache.dtype))
     valid = ring_valid(pos, W, cfg.window, x.device)
     if impl == "cuda":
         from repro_torch.kernels.decode_attention import ops as da_ops
@@ -298,8 +307,10 @@ def _einsum_decode(q, k_cache, v_cache, valid):
     s = torch.einsum("bkgd,bwkd->bkgw", q4,
                      k_cache.to(cdt).float()) * (1.0 / float(hd) ** 0.5)
     s = torch.where(valid, s, NEG_INF)
-    w = torch.softmax(s, dim=-1).to(cdt).float()
-    o = torch.einsum("bkgw,bwkd->bkgd", w, v_cache.to(cdt).float())
+    # A cache sharded on W leaves the scores sharded on w: the softmax
+    # stays on the shards and P.V's partial sums are reduced once.
+    w = softmax_last(s).to(cdt).float()
+    o = reduced(torch.einsum("bkgw,bwkd->bkgd", w, v_cache.to(cdt).float()))
     return o.reshape(B, 1, H, hd).to(cdt)
 
 

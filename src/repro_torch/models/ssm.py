@@ -33,7 +33,7 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.pspec import gathered, reduced
+from repro_torch.models.pspec import gathered, on_ssd_shards, reduced
 
 Tensor = torch.Tensor
 
@@ -149,18 +149,25 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
       h'  = e^{cum_Q} h_prev + sum_j e^{cum_Q - cum_j} dt_j B_j (x) x_j
 
     The decay e^{cum_i - cum_j} is taken only where j <= i: above the
-    diagonal the exponent is positive and could overflow.
+    diagonal the exponent is positive and could overflow. On a mesh it
+    runs on each device's shards of the batch and the heads
+    (``pspec.on_ssd_shards``), so no collective runs inside its loop,
+    forward or backward.
     """
+    return on_ssd_shards(functools.partial(_ssd_chunked, chunk=chunk),
+                         x, dt, A, B_in, C_in, D_skip, h0)
+
+
+def _ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
+                 C_in: Tensor, D_skip: Tensor, h0: Optional[Tensor], *,
+                 chunk: int) -> Tuple[Tensor, Tensor]:
     Bb, L, H, P = x.shape
     N = B_in.shape[-1]
     assert L % chunk == 0, (L, chunk)
     f32 = torch.float32
     A = A.to(f32)
     D_skip = D_skip.to(f32)
-    # A zero state takes x's placements on a mesh (zeros_like of a
-    # DTensor is sharded as it is; a fresh tensor would be replicated).
-    h = (torch.zeros_like(x[:, 0, :, None, :].expand(Bb, H, N, P),
-                          dtype=f32, memory_format=torch.contiguous_format)
+    h = (torch.zeros((Bb, H, N, P), dtype=f32, device=x.device)
          if h0 is None else h0.to(f32))
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=x.device))[None, :, :, None]

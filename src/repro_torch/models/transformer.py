@@ -58,7 +58,9 @@ from repro_torch import tree
 from repro_torch.core.types import resolve_device
 from repro_torch.models import attention, layers, moe, ssm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.pspec import gathered, hint, reshaped, take_last
+from repro_torch.models.pspec import (embed_lookup, gathered,
+                                      grad_reduced, hint, logsumexp_last,
+                                      reduced, reshaped, take_last)
 
 Tensor = torch.Tensor
 
@@ -209,37 +211,47 @@ def _apply_attn_block_kv(p, cfg: ModelConfig, x, positions, impl, enc=None,
                          mode="causal"):
     """The block and its (roped) K/V; ``enc`` = (encoder output, its
     positions) adds the cross-attention sub-block."""
-    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    # On a mesh each sub-block's row-parallel partial sums are completed
+    # where it ends, as in the decode blocks, and the gradient of its
+    # normed input where the column-parallel projections take it
+    # (Megatron's all-reduces forward and backward).
+    h = _normed(cfg, p["ln1"], x)
     y, kv = attention.attention(p["attn"], cfg, h, positions, mode=mode,
                                 impl=impl, return_kv=True)
-    x = x + y
+    x = x + reduced(y)
     if enc is not None:
-        h = layers.apply_norm(cfg.norm, p["ln_x"], x)
-        x = x + attention.attention(
+        h = _normed(cfg, p["ln_x"], x)
+        x = x + reduced(attention.attention(
             p["xattn"], cfg, h, positions, kv_src=enc[0],
-            kv_positions=enc[1], mode="full", rope=False, impl=impl)
-    h = layers.apply_norm(cfg.norm, p["ln2"], x)
-    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), kv
+            kv_positions=enc[1], mode="full", rope=False, impl=impl))
+    h = _normed(cfg, p["ln2"], x)
+    return x + reduced(layers.apply_mlp(cfg.mlp, p["mlp"], h)), kv
+
+
+def _normed(cfg: ModelConfig, w, x):
+    """The sub-block's norm of ``x``; on a mesh its gradient's partial
+    sums are completed (pspec.grad_reduced)."""
+    return grad_reduced(layers.apply_norm(cfg.norm, w, x))
 
 
 def _apply_moe_block_kv(p, cfg: ModelConfig, x, positions, impl):
     """The block, its K/V and its aux loss."""
-    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    h = _normed(cfg, p["ln1"], x)
     y, kv = attention.attention(p["attn"], cfg, h, positions, impl=impl,
                                 return_kv=True)
-    x = x + y
-    h = layers.apply_norm(cfg.norm, p["ln2"], x)
+    x = x + reduced(y)
+    h = _normed(cfg, p["ln2"], x)
     y, aux = moe.apply_moe(p["moe"], cfg, h)
-    return x + y, kv, aux
+    return x + reduced(y), kv, aux
 
 
 def _apply_ssm_block(p, cfg: ModelConfig, x, impl):
     """The block and its decode state (the scan computes the state in
     every route, so it is returned whether or not the caller keeps it)."""
-    h = layers.apply_norm(cfg.norm, p["ln1"], x)
+    h = _normed(cfg, p["ln1"], x)
     y, st = ssm.mamba2_forward(p["mixer"], cfg, h, return_state=True,
                                impl=impl)
-    return x + y, st
+    return x + reduced(y), st
 
 
 def _maybe_remat(fn, remat: bool):
@@ -361,7 +373,7 @@ def _ce_block(h: Tensor, w_head: Tensor, labels: Tensor,
     """One block's masked next-token NLL sum and mask sum, from f32 logits
     (B, block, V)."""
     logits = hint((h @ w_head.to(h.dtype)).float(), "logits")
-    lse = torch.logsumexp(logits, dim=-1)
+    lse = logsumexp_last(logits)
     picked = take_last(logits, labels.long())
     return ((lse - picked) * mask).sum(), mask.sum()
 
@@ -437,7 +449,7 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, Tensor],
     positions = torch.arange(x.shape[1], device=x.device)
     x, aux = decoder_stack(params, cfg, x, positions, impl, enc_out,
                            enc_positions, remat=remat)
-    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    x = _normed(cfg, params["final_norm"], x)
     nll_sum, m_sum = chunked_cross_entropy(x, head_weight(params, cfg),
                                            labels, mask)
     loss = nll_sum / torch.clamp_min(m_sum, 1.0)
@@ -511,15 +523,19 @@ def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
 
 def _decode_attn_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl,
                        cross_kv=None):
+    # On a mesh each row-parallel projection's partial sums are completed
+    # where the sub-block ends, once, in the compute dtype (Megatron's
+    # two all-reduces a block); DTensor would carry them on into the norm
+    # and complete them there, in f32, for each use.
     h = layers.apply_norm(cfg.norm, p["ln1"], x)
     y, kc, vc = attention.decode_attention(p["attn"], cfg, h, kc, vc, pos,
                                            impl=impl)
-    x = x + y
+    x = x + reduced(y)
     if cross_kv is not None:
         h = layers.apply_norm(cfg.norm, p["ln_x"], x)
-        x = x + _cross_decode(p["xattn"], cfg, h, *cross_kv)
+        x = x + reduced(_cross_decode(p["xattn"], cfg, h, *cross_kv))
     h = layers.apply_norm(cfg.norm, p["ln2"], x)
-    return x + layers.apply_mlp(cfg.mlp, p["mlp"], h), kc, vc
+    return x + reduced(layers.apply_mlp(cfg.mlp, p["mlp"], h)), kc, vc
 
 
 def _cross_decode(p, cfg: ModelConfig, x, ck, cv):
@@ -539,16 +555,16 @@ def _decode_moe_block(p, cfg: ModelConfig, x, kc, vc, pos: int, impl):
     h = layers.apply_norm(cfg.norm, p["ln1"], x)
     y, kc, vc = attention.decode_attention(p["attn"], cfg, h, kc, vc, pos,
                                            impl=impl)
-    x = x + y
+    x = x + reduced(y)
     h = layers.apply_norm(cfg.norm, p["ln2"], x)
     y, _ = moe.apply_moe(p["moe"], cfg, h)
-    return x + y, kc, vc
+    return x + reduced(y), kc, vc
 
 
 def _decode_ssm_block(p, cfg: ModelConfig, x, state: ssm.SSMState):
     h = layers.apply_norm(cfg.norm, p["ln1"], x)
     y, state = ssm.mamba2_decode(p["mixer"], cfg, h, state)
-    return x + y, state
+    return x + reduced(y), state
 
 
 def _decode_layers(params, cfg: ModelConfig, x: Tensor,
@@ -599,10 +615,11 @@ def decode_step(params, cfg: ModelConfig, token: Tensor,
                 caches: DecodeCaches, impl: Optional[str] = None):
     """One serve step: token (B, 1) -> f32 logits (B, V), caches (updated
     in place, ``pos`` advanced)."""
-    # On a mesh a token sharded over several mesh axes (pod and data) has
-    # no DTensor rule for the table lookup: the (B, 1) ids are gathered.
-    x = _decode_layers(params, cfg, _embed(params, cfg, gathered(token, 0)),
-                       caches, impl)
+    # On a mesh the (B, 1) ids are gathered (a token sharded over several
+    # mesh axes, pod and data, has no DTensor rule for the lookup), and a
+    # table sharded on the vocabulary is looked up on its shards.
+    x = embed_lookup(params["embed"], gathered(token, 0).long())
+    x = _decode_layers(params, cfg, x.to(cfg.torch_dtype), caches, impl)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x[:, 0]), caches._replace(pos=caches.pos + 1)
 
@@ -666,7 +683,10 @@ def prefill_forward(params, cfg: ModelConfig, tokens: Tensor, *,
     (encoder-decoder, which raises ValueError without them). The caches
     are in the compute dtype whatever ``cfg.kv_dtype`` says, as the JAX
     package's are."""
-    x = _embed(params, cfg, tokens)
+    # On a mesh the lookup leaves the rows sharded on D; they are gathered
+    # once, so that each block's projections start from rows whole on
+    # the model axis (else every projection is a pending partial sum).
+    x = gathered(_embed(params, cfg, tokens), -1)
     dt = x.dtype
     enc = None
     if cfg.is_encdec:
