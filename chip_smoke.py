@@ -214,18 +214,24 @@ ROWS> with ROWS other than the main path's 128, which are listed), then:
      the next.
  18. runs the dry run on the production mesh with the collective
      estimate (launch/dryrun.py's default, JAX's) on meta tensors, in the
-     fake world of 512 ranks it starts and destroys itself: olmo-1b and
-     mamba2-370m x decode_32k on 16 x 16 (tp) and dbrx-132b x decode_32k
-     on 2 x 16 x 16 with the experts on 'data'. Each one's per-device
-     argument bytes, read from the local shards of this torch's DTensor
-     trace, must equal the shard-shape sum of its placed arguments, and
-     olmo-1b's and mamba2-370m's XLA's (2,441,674,788 and 365,081,764);
-     the collective counter must meet no op it has no kind for (it
-     raises); the wire bytes per device, five kinds, are printed beside
-     the CPU's pin (MESH_WIRE_BYTES) and XLA's, and olmo-1b's and
-     mamba2-370m's must be within WIRE_FACTOR of XLA's. Prints the trace
-     seconds and the temp bytes (`[mesh]`); the five kernels' counters
-     are zeroed before the phase and must read 0 after it.
+     fake world of 512 ranks it starts and destroys itself (MESH_DRYRUN):
+     olmo-1b and mamba2-370m x decode_32k on 16 x 16 (tp), dbrx-132b x
+     decode_32k on 2 x 16 x 16 with the experts on 'data' and on 16 x 16,
+     llama4 x decode_32k on 16 x 16; mamba2-370m and olmo-1b x
+     prefill_32k, olmo-1b x prefill_32k on 2 x 16 x 16, olmo-1b and
+     dbrx-132b x train_4k on 16 x 16 (the lookup's backward; the MoE
+     dispatch's), at 1,024 tokens (the shapes' batches, so the rules shard
+     what they shard at full size). Each one's per-device argument bytes,
+     read from the local shards of this torch's DTensor trace, must equal
+     the shard-shape sum of its placed arguments, and olmo-1b's and
+     mamba2-370m's decode XLA's (2,441,674,788 and 365,081,764); the
+     collective counter must meet no op it has no kind for (it raises);
+     the wire bytes per device, five kinds, must equal the CPU's pin
+     (MESH_WIRE_BYTES) to the byte, and olmo-1b's and mamba2-370m's
+     decode be within WIRE_FACTOR of XLA's. Prints the trace seconds and
+     the temp bytes (`[mesh]`) and the phase's seconds, at most
+     MESH_PHASE_S; the five kernels' counters are zeroed before the phase
+     and must read 0 after it.
 
 Prints the script's wall, the kernels JSON line, then the nvidia-smi
 line, and last ``{"ok": true, "device": {...}}``. Any failed check raises, so the exit
@@ -235,6 +241,7 @@ or run from a directory without the repository's src/, it exits 2.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import statistics
@@ -2912,36 +2919,49 @@ def placement_phase(params, smi):
           f"{time.perf_counter() - t0:.1f} s")
 
 
-# Phase 18's combos: (arch, shape, multi_pod, profile, ep_axis). The
-# first two are ones the JAX reference compiles, whose XLA argument bytes
-# per device (its dry run's memory_analysis() on JAX 0.9.0's CPU) the
-# port must give exactly; the second runs the SSM decode step, whose
-# partial residual stream this torch cannot combine with a sharded
-# operand unless it is completed first (pspec.reduced); the third
-# reaches the MoE hints, the out-of-place scatter and the expert axis on
-# 'data' on the multi-pod mesh.
-MESH_DRYRUN = (("olmo-1b", "decode_32k", False, "tp", "model"),
-               ("mamba2-370m", "decode_32k", False, "tp", "model"),
-               ("dbrx-132b", "decode_32k", True, "tp", "data"))
-# XLA's argument_size_in_bytes of the JAX dry run of the same combos on
-# the 16 x 16 mesh (JAX 0.9.0 on the CPU, --skip-collectives).
-XLA_ARGUMENT_BYTES = {"olmo-1b": 2_441_674_788, "mamba2-370m": 365_081_764}
-# The collective estimate's wire bytes per device of the same combos, as
-# the CPU's torch counts them (tests/test_torch_dryrun_mesh.py holds the
-# CPU to these); the card's torch may place a collective otherwise, which
-# the phase prints beside the pin. XLA's, where JAX compiles the combo
-# (JAX 0.9.0 on the CPU, with collectives): 9,000,960 and 7,412,544.
-MESH_WIRE_BYTES = {"olmo-1b": 8_786_400.0, "mamba2-370m": 9_311_520.0,
-                   "dbrx-132b": 359_227_346.0}
-# How far the card's torch may put each estimate from the CPU's pin,
-# either way: the dense decode equal to the byte; torch 2.11 gathers 128
-# bytes a layer more in the SSM decode (ssm.py, ``xs * D``) and, an open
-# fault (ROADMAP.md section 3), the MoE dispatch's buffer and routed
-# copies whole, 1.73x dbrx-132b's pin.
-CARD_PIN_FACTOR = {"olmo-1b": 1.0, "mamba2-370m": 1.001, "dbrx-132b": 2.0}
-XLA_WIRE_BYTES = {"olmo-1b": 9_000_960.0, "mamba2-370m": 7_412_544.0}
+# Phase 18's combos: (arch, shape, multi_pod, profile, ep_axis, seq_len),
+# seq_len 0 the shape's own; a cut sequence keeps the shape's batch, so
+# the rules shard the same dimensions as at full size. The decode combos:
+# olmo-1b's and mamba2-370m's, which the JAX reference compiles here and
+# whose XLA argument bytes per device (its dry run's memory_analysis() on
+# JAX 0.9.0's CPU) the port must give exactly, mamba2-370m's through the
+# SSM decode's skip term; the MoE dispatch on its shards, with the
+# experts on 'data' on the multi-pod mesh and on 'model' (dbrx-132b's
+# top-4, llama4's top-1). The prefill and train combos reach the sites
+# torch 2.11 could not trace or counted otherwise: the SSM conv
+# (mamba2-370m), the dense prefill's vocabulary-parallel lookup
+# (olmo-1b), the lookup with ids on ('pod', 'data'), and the lookup's
+# backward in a train step.
+MESH_DRYRUN = (("olmo-1b", "decode_32k", False, "tp", "model", 0),
+               ("mamba2-370m", "decode_32k", False, "tp", "model", 0),
+               ("dbrx-132b", "decode_32k", True, "tp", "data", 0),
+               ("dbrx-132b", "decode_32k", False, "tp", "model", 0),
+               ("llama4-maverick-400b-a17b", "decode_32k", False, "tp",
+                "model", 0),
+               ("mamba2-370m", "prefill_32k", False, "tp", "model", 1024),
+               ("olmo-1b", "prefill_32k", False, "tp", "model", 1024),
+               ("olmo-1b", "prefill_32k", True, "tp", "model", 1024),
+               ("olmo-1b", "train_4k", False, "tp", "model", 1024),
+               ("dbrx-132b", "train_4k", False, "tp", "model", 1024))
+# XLA's argument_size_in_bytes of the JAX dry run of the decode combos
+# on the 16 x 16 mesh (JAX 0.9.0 on the CPU, --skip-collectives).
+XLA_ARGUMENT_BYTES = {("olmo-1b", "decode_32k"): 2_441_674_788,
+                      ("mamba2-370m", "decode_32k"): 365_081_764}
+# The collective estimate's wire bytes per device of each combo, as the
+# CPU's torch counts them (tests/test_torch_dryrun_mesh.py holds the CPU
+# to these); the card's torch must count the same, to the byte. XLA's,
+# where JAX compiles the combo (JAX 0.9.0 on the CPU, with collectives):
+# 9,000,960 and 7,412,544.
+MESH_WIRE_BYTES = dict(zip(MESH_DRYRUN, (
+    8_786_400.0, 9_311_520.0, 188_898_416.0, 79_405_920.0, 70_971_360.0,
+    767_520_000.0, 519_045_120.0, 259_522_560.0, 10_870_333_455.0,
+    371_078_496_015.0)))
+XLA_WIRE_BYTES = {("olmo-1b", "decode_32k"): 9_000_960.0,
+                  ("mamba2-370m", "decode_32k"): 7_412_544.0}
 # How far the port's wire bytes may be from XLA's, either way.
 WIRE_FACTOR = 3.0
+# The phase's budget, seconds.
+MESH_PHASE_S = 60.0
 
 
 def mesh_dryrun_phase(smi):
@@ -2949,11 +2969,11 @@ def mesh_dryrun_phase(smi):
     estimate, in the fake world of 512 ranks it starts itself: each
     combo's per-device argument bytes, read from the DTensor trace's
     local shards on this torch, must equal the shard-shape sum of its
-    placed arguments (and, for olmo-1b and mamba2-370m, XLA's); the
-    counter must meet no collective it has no kind for (it raises), and
-    the wire bytes are printed beside the CPU's pin and XLA's, within
-    CARD_PIN_FACTOR of the pin and WIRE_FACTOR of XLA's. Returns the
-    results."""
+    placed arguments (and, for olmo-1b's and mamba2-370m's decode, XLA's);
+    the counter must meet no collective it has no kind for (it raises);
+    the wire bytes per device must equal the CPU's pin to the byte, and
+    olmo-1b's and mamba2-370m's decode be within WIRE_FACTOR of XLA's.
+    Returns the results."""
     import torch.distributed as dist
 
     from repro_torch import configs
@@ -2963,35 +2983,38 @@ def mesh_dryrun_phase(smi):
 
     assert not dist.is_initialized(), "phase 17 left a process group"
     out = []
-    for arch, shape, multi_pod, profile, ep_axis in MESH_DRYRUN:
+    for combo in MESH_DRYRUN:
+        arch, shape, multi_pod, profile, ep_axis, seq_len = combo
         r = dryrun.lower_combo(arch, shape, multi_pod=multi_pod,
                                profile=profile, ep_axis=ep_axis,
-                               verbose=False)
+                               seq_len=seq_len, verbose=False)
         assert not dist.is_initialized(), "the dry run left its world"
+        full = INPUT_SHAPES[shape]
+        cut = dataclasses.replace(full, seq_len=seq_len or full.seq_len)
         with dryrun._world(dryrun.FAKE_WORLD):
             mesh = make_production_mesh(multi_pod=multi_pod)
-            want = dryrun.argument_bytes(configs.get_config(arch),
-                                         INPUT_SHAPES[shape], mesh,
+            want = dryrun.argument_bytes(configs.get_config(arch), cut, mesh,
                                          profile=profile, ep_axis=ep_axis)
         m = r["memory"]
-        assert m["argument_bytes"] == want, (arch, m["argument_bytes"], want)
-        if arch in XLA_ARGUMENT_BYTES:
-            assert want == XLA_ARGUMENT_BYTES[arch], (arch, want)
+        assert m["argument_bytes"] == want, (combo, m["argument_bytes"],
+                                             want)
+        if not multi_pod and (arch, shape) in XLA_ARGUMENT_BYTES:
+            assert want == XLA_ARGUMENT_BYTES[arch, shape], (combo, want)
         wire = r["wire_bytes_per_device"]
         assert wire > 0 and len(r["collectives"]) == 5, r["collectives"]
-        xla = XLA_WIRE_BYTES.get(arch)
+        xla = XLA_WIRE_BYTES.get((arch, shape)) if not multi_pod else None
         if xla:
-            assert 1 / WIRE_FACTOR <= wire / xla <= WIRE_FACTOR, (arch, wire)
-        f = CARD_PIN_FACTOR[arch]
-        assert 1 / f <= wire / MESH_WIRE_BYTES[arch] <= f, (arch, wire)
+            assert 1 / WIRE_FACTOR <= wire / xla <= WIRE_FACTOR, (combo, wire)
+        assert wire == MESH_WIRE_BYTES[combo], (combo, wire,
+                                                MESH_WIRE_BYTES[combo])
         print("[mesh] " + json.dumps(dict(
-            arch=arch, shape=shape, mesh=r["mesh"], n_chips=r["n_chips"],
-            profile=profile, ep_axis=ep_axis,
+            arch=arch, shape=shape, seq_len=cut.seq_len, mesh=r["mesh"],
+            n_chips=r["n_chips"], profile=profile, ep_axis=ep_axis,
             argument_bytes=m["argument_bytes"], shard_sum=want,
             output_bytes=m["output_bytes"], temp_bytes=m["temp_bytes"],
             flops_per_device=r["flops_per_device"],
-            wire_bytes_per_device=wire, cpu_pin=MESH_WIRE_BYTES[arch],
-            equal_cpu_pin=wire == MESH_WIRE_BYTES[arch],
+            wire_bytes_per_device=wire, cpu_pin=MESH_WIRE_BYTES[combo],
+            equal_cpu_pin=wire == MESH_WIRE_BYTES[combo],
             xla_wire_bytes=xla, ratio_to_xla=(wire / xla if xla else None),
             collectives={k: [c["count"], c["wire_bytes"]]
                          for k, c in r["collectives"].items()},
@@ -3440,9 +3463,11 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_dryrun_phase(smi)
     mesh_launches = {k: mod.LAUNCHES[0] for k, mod in train_ops.items()}
-    print(f"[mesh] phase wall {time.perf_counter() - t0:.1f} s; kernel "
-          f"launches {mesh_launches}")
+    mesh_wall = time.perf_counter() - t0
+    print(f"[mesh] phase wall {mesh_wall:.1f} s; kernel launches "
+          f"{mesh_launches}")
     assert not any(mesh_launches.values()), mesh_launches
+    assert mesh_wall <= MESH_PHASE_S, mesh_wall
 
     def entry(name, source, replaces, checks, n):
         main = checks[0]

@@ -320,15 +320,19 @@ def lower_combo(arch: str, shape_name: str, *, multi_pod: bool = False,
                 remat: bool = True, verbose: bool = True,
                 collectives: bool = True, profile: str = "tp",
                 kv_dtype: str = "", infer_dtype: str = "",
-                moe_groups: int = 0, ep_axis: str = "model") -> dict:
+                moe_groups: int = 0, ep_axis: str = "model",
+                seq_len: int = 0) -> dict:
     """The result dict of one (arch, shape) on the production mesh
     (``multi_pod``: 2 x 16 x 16, else 16 x 16), or the documented skip.
     Prints the analyses when ``verbose``.
 
     ``collectives=False`` writes no collective estimate (the JAX dry
     run's pass of that name); the mesh trace runs either way, for the
-    memory."""
+    memory. ``seq_len`` cuts the shape's sequence (0: the shape's own);
+    the batch, and so every placement, stays the shape's."""
     shape = INPUT_SHAPES[shape_name]
+    if seq_len:
+        shape = dataclasses.replace(shape, seq_len=seq_len)
     cfg = variant_for_shape(configs.get_config(arch), shape)
     if cfg is None:
         return {"arch": arch, "shape": shape_name, "skipped": True,

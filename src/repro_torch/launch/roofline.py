@@ -21,7 +21,9 @@ permute 1). The port makes no HLO, so it has no HLO parser.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict
+import os
+import traceback
+from typing import Dict, List, Optional
 
 from torch.distributed.tensor import DTensor
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -87,6 +89,41 @@ def _group_size(func, args, kwargs) -> int:
     return group.size()
 
 
+# The records of ``record_sites`` while one is open, else None.
+_SITES: Optional[List[dict]] = None
+_MODELS = os.path.join("repro_torch", "models")
+
+
+def _site() -> tuple:
+    """(the innermost frame of the model code on the stack, as "file:line
+    function", or "backward" where there is none; the outermost ``pspec``
+    helper on it, or None)."""
+    frames = [f for f in traceback.extract_stack() if _MODELS in f.filename]
+    helper = next((f.name for f in frames
+                   if f.filename.endswith("pspec.py")), None)
+    model = [f for f in frames if not f.filename.endswith("pspec.py")]
+    where = (f"{os.path.basename(model[-1].filename)}:{model[-1].lineno} "
+             f"{model[-1].name}" if model else "backward")
+    return where, helper
+
+
+@contextlib.contextmanager
+def record_sites():
+    """Records each collective that ``count_collectives`` counts inside
+    the block into the list it yields, one dict each: ``kind``,
+    ``shape`` and ``result_bytes`` (its result's on this rank),
+    ``wire_bytes``, ``site`` and ``helper`` (``_site``) and ``op``, the
+    last aten op DTensor was handed before it (the op whose inputs it
+    redistributed; the only witness in the backward, where no model
+    frame is on the stack)."""
+    global _SITES
+    prev, _SITES = _SITES, []
+    try:
+        yield _SITES
+    finally:
+        _SITES = prev
+
+
 class _CollectiveCounter(TorchDispatchMode):
     """Counts the collectives below DTensor. An op with a DTensor among
     its types is handed back (``NotImplemented``), so DTensor's own
@@ -96,9 +133,11 @@ class _CollectiveCounter(TorchDispatchMode):
     def __init__(self, out):
         super().__init__()
         self.out = out
+        self.last_op = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if any(issubclass(t, DTensor) for t in types):
+            self.last_op = func
             return NotImplemented
         kwargs = kwargs or {}
         result = func(*args, **kwargs)
@@ -118,10 +157,17 @@ class _CollectiveCounter(TorchDispatchMode):
         outs = result if isinstance(result, (list, tuple)) else (result,)
         rb = sum(t.numel() * t.element_size() for t in outs)
         g = _group_size(func, args, kwargs)
+        wire = _wire_bytes(kind, rb, g)
         c = self.out[kind]
         c["count"] += 1
         c["result_bytes"] += rb
-        c["wire_bytes"] += _wire_bytes(kind, rb, g)
+        c["wire_bytes"] += wire
+        if _SITES is not None:
+            site, helper = _site()
+            _SITES.append({"kind": kind, "shape": tuple(outs[0].shape),
+                           "result_bytes": rb, "wire_bytes": wire,
+                           "site": site, "helper": helper,
+                           "op": str(self.last_op)})
 
 
 @contextlib.contextmanager

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models.pspec import grad_reduced, mean_last
+
 Tensor = torch.Tensor
 
 
@@ -44,10 +46,14 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, *, device,
 # ---------------------------------------------------------------------------
 
 def rms_norm(x: Tensor, weight: Optional[Tensor], eps: float = 1e-6) -> Tensor:
-    """RMSNorm; ``weight=None`` is OLMo's parameter-free variant."""
+    """RMSNorm; ``weight=None`` is OLMo's parameter-free variant. On a
+    mesh that shards the last dimension (the SSM's gated output) the mean
+    square is completed once (``pspec.mean_last``), and so is the
+    gradient of its inverse root, a sum over that dimension
+    (``pspec.grad_reduced``)."""
     x32 = x.float()
-    var = (x32 * x32).mean(-1, keepdim=True)
-    y = x32 * torch.rsqrt(var + eps)
+    var = mean_last(x32 * x32)
+    y = x32 * grad_reduced(torch.rsqrt(var + eps))
     if weight is not None:
         y = y * weight.float()
     return y.to(x.dtype)

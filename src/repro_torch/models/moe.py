@@ -27,7 +27,9 @@ import torch.nn.functional as F
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.pspec import gathered, hint, index_add, reshaped
+from repro_torch.models.pspec import (grad_like, hint, on_rows, reduced,
+                                      reshaped, rows_like, scatter_rows,
+                                      take_rows)
 
 Tensor = torch.Tensor
 
@@ -58,9 +60,13 @@ def capacity(cfg: ModelConfig, n_tokens: int) -> int:
 def _top_k(probs: Tensor, k: int) -> Tuple[Tensor, Tensor]:
     """The k largest probabilities and their experts, ties to the lowest
     expert index first (``jax.lax.top_k``'s order; ``torch.topk`` promises
-    none among ties)."""
-    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    none among ties). On a mesh it runs on each device's tokens
+    (``pspec.on_rows``)."""
+    def top(p):
+        vals, idx = torch.sort(p, dim=-1, descending=True, stable=True)
+        return vals[..., :k], idx[..., :k]
+
+    return on_rows(top, probs, 2)
 
 
 def _positions_in_expert(flat_eids: Tensor, E: int) -> Tensor:
@@ -92,9 +98,11 @@ def apply_moe(p, cfg: ModelConfig, x: Tensor) -> Tuple[Tensor, Tensor]:
     gates, eids = _top_k(probs, K)                          # (N, K)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
 
-    # Load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e
-    frac_tokens = F.one_hot(eids, E).float().sum(1).mean(0) / K
-    aux = E * torch.sum(frac_tokens * probs.mean(0))
+    # Load-balance auxiliary loss (Switch-style): E * sum_e f_e * p_e. On
+    # a mesh the means over the token shards are completed at once, and
+    # the loss's gradient reaches probs on probs' shards (pspec.grad_like).
+    frac_tokens = reduced(F.one_hot(eids, E).float().sum(1).mean(0) / K)
+    aux = E * torch.sum(frac_tokens * reduced(grad_like(probs).mean(0)))
 
     G = cfg.moe_dispatch_groups
     if G > 1 and N % G == 0:
@@ -134,20 +142,17 @@ def _dispatch_grouped(p, cfg: ModelConfig, tokens, gates, eids,
     rows = (slot + torch.arange(G, device=slot.device)[:, None] * E * Cg
             ).reshape(-1)
     vals = tokens.repeat_interleave(K, dim=0) * keep.reshape(-1, 1).to(dt)
-    # On a mesh the routed copies are gathered over the data shards before
-    # the scatter (pspec.gathered; XLA scatters each shard's copies and
-    # all-reduces the buffer): DTensor's index_add rule cannot pair row
-    # shards of vals with a whole buffer. The buffer's zeros are placed
-    # as the tokens' columns are, which is how the scatter places vals'.
-    zeros = torch.zeros_like(tokens[:1].expand(G * E * Cg, D),
-                             memory_format=torch.contiguous_format)
-    buf = index_add(zeros, gathered(rows, 0), gathered(vals, 0))
-
+    # On a mesh the scatter and the gather back run on each device's
+    # shards of the routed copies (pspec.scatter_rows, take_rows), whose
+    # rows are taken on the copies' shards first.
+    rows = rows_like(rows, vals)
     if G == 1:                                  # the flat dispatch
+        buf = scatter_rows(rows, vals, "moe_buffer", (E, Cg, D))
         buf = hint(buf.reshape(E, Cg, D), "moe_buffer")
         back = hint(_ffn(p, buf, dt), "moe_buffer").reshape(E * Cg, D)
     else:
         # (G, E, Cg, D) data-sharded -> (E, G * Cg, D) expert-sharded.
+        buf = scatter_rows(rows, vals, "moe_group_local", (G, E, Cg, D))
         buf = hint(buf.reshape(G, E, Cg, D), "moe_group_local")
         buf = hint(buf.transpose(0, 1).reshape(E, G * Cg, D), "moe_buffer")
         out = hint(_ffn(p, buf, dt), "moe_buffer")
@@ -155,4 +160,4 @@ def _dispatch_grouped(p, cfg: ModelConfig, tokens, gates, eids,
                     "moe_group_local").reshape(G * E * Cg, D)
 
     w = (gates.reshape(-1) * keep.reshape(-1).float()).to(dt)
-    return (back[rows] * w[:, None]).reshape(N, K, D).sum(1)
+    return take_rows(back, rows, w, K)

@@ -10,27 +10,31 @@ Where GSPMD reshards silently and DTensor has no rule, the model code
 makes the reshard explicit with ``gathered`` (dimensions replicated),
 ``reshaped`` (a reshape that keeps, in its input and its gradient, only
 the shards that divide the reshaped dimension), ``grad_gathered`` (a
-gradient gathered), ``reduced`` (pending partial sums completed) and
-``grad_reduced`` (a gradient's pending partial sums completed);
-``index_add`` is the scatter out of place on a DTensor,
-``take_last`` is a gather along the last dimension that stays on each
-device's shard, and ``on_shards`` runs a blocked op on each device's
-shards (the chunked attention, ``on_head_shards``; the SSD scan,
-``on_ssd_shards``). The sharded forms keep a sharded dimension on its
-shards where DTensor would gather it: ``write_slot`` (the decode's
-cache write of one slot), ``softmax_last`` (the decode's softmax over a
-sharded last dimension), ``embed_lookup`` (the decode's
-vocabulary-parallel lookup) and ``logsumexp_last`` (the cross-entropy's
-over vocabulary-sharded logits).
+gradient gathered), ``reduced`` (pending partial sums completed),
+``grad_reduced`` (a gradient's pending partial sums completed),
+``grad_like`` (a gradient placed as its input), ``placed_like`` and
+``rows_like`` (a tensor, or its rows, placed as another's). ``on_shards``
+runs an op on each device's shards: the chunked attention
+(``on_head_shards``), the SSD scan (``on_ssd_shards``), the SSM conv
+(``on_conv_shards``), a top-k along the last dimension (``on_rows``).
+The sharded forms keep a sharded dimension on its shards where DTensor
+would gather it, or where its rule differs between torch 2.11 and 2.13:
+``write_slot`` (the decode's cache write of one slot), ``softmax_last``
+(the decode's softmax over a sharded last dimension), ``embed_lookup``
+(the vocabulary-parallel lookup, forward and backward),
+``scatter_rows`` and ``take_rows`` (the MoE's scatter of the routed
+copies and its gather back), ``take_last`` (the labels' logits),
+``logsumexp_last`` (the cross-entropy's over vocabulary-sharded logits)
+and ``mean_last`` (a mean over a sharded last dimension).
 On a plain tensor each is what it was without a mesh.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
-from torch.distributed.tensor import (DTensor, Partial, Replicate, Shard,
-                                      distribute_tensor)
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.partition import (NamedSharding, data_axis_names,
                                    drop_indivisible)
@@ -147,6 +151,31 @@ def grad_gathered(x, dim: int):
     return _GradPlaced.apply(x, None, 0, (dim % x.dim(),))
 
 
+class _GradLike(torch.autograd.Function):
+    """The identity, whose gradient takes the input's placements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = x.placements
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and grad.placements != ctx.placements:
+            grad = _placed(grad, ctx.placements)
+        return grad
+
+
+def grad_like(x):
+    """``x`` itself, whose gradient is placed as ``x`` before it flows on
+    (a local slice where it arrives replicated): for a tensor whose uses'
+    gradients would otherwise meet with placements that the torches add
+    in different ways."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _GradLike.apply(x)
+
+
 def reduced(x):
     """``x`` with the partial sums a DTensor rule left pending completed
     (XLA's all-reduce). torch 2.11 cannot turn a shard into a partial
@@ -167,18 +196,31 @@ def _moved(pl: tuple, dims: dict) -> tuple:
                  else Replicate() for p in pl)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose gradient is made contiguous."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()
+
+
 def on_shards(fn, mesh, args: tuple, outs: tuple):
     """``fn`` on each device's shards: ``args`` are (tensor, placements)
     pairs, each tensor placed so (a plain tensor or None passes as it
     is) and handed to ``fn`` as its local shard, and ``outs`` the
     placements of ``fn``'s results, which it returns as a tuple. The
     shards are even, as the rules guarantee. An input replicated on a
-    mesh axis that shards a result gets a gradient that is a partial sum
-    there (each device's shard of the result draws on it). For an op
+    mesh axis that shards a result, or on which a result is a partial
+    sum, gets a gradient that is a partial sum there (each device's shard
+    or summand of the result draws on it). For an op
     independent across its sharded dimensions, XLA's local computation;
     DTensor would reshard each step of a blocked loop, forward and
     backward."""
-    split = [any(isinstance(o[md], Shard) for o in outs)
+    split = [any(isinstance(o[md], (Shard, Partial)) for o in outs)
              for md in range(mesh.ndim)]
 
     def local(t, pl: tuple):
@@ -186,8 +228,9 @@ def on_shards(fn, mesh, args: tuple, outs: tuple):
             return t
         grad = tuple(Partial() if s and isinstance(p, Replicate) else p
                      for s, p in zip(split, pl))
-        return (t if t.placements == pl else t.redistribute(mesh, pl)
-                ).to_local(grad_placements=grad)
+        return _ContiguousGrad.apply((
+            t if t.placements == pl else t.redistribute(mesh, pl)
+        ).to_local(grad_placements=grad))
 
     res = fn(*(local(t, pl) for t, pl in args))
     return tuple(DTensor.from_local(r, mesh, pl, run_check=False)
@@ -237,6 +280,24 @@ def on_ssd_shards(fn, x, dt, A, B_in, C_in, D_skip, h0):
         (D_skip, _moved(pl, {2: 0})), (h0, state)), (pl, state))
 
 
+def on_conv_shards(fn, x, w, b):
+    """``fn(x, w, b)``, a depthwise causal conv over x (B, L, C) with
+    weights w (W, C) and bias b (C,), independent across batch rows and
+    channels. On a mesh it runs on each device's shards (``on_shards``),
+    placed by x's batch and channel shards, after x's pending sums are
+    completed and its sequence gathered: the rules never shard the
+    sequence, whose shard would need the W - 1 rows before it. DTensor
+    pads a sharded input in its own way on each torch (2.11 fails
+    redistributing it)."""
+    if not isinstance(x, DTensor):
+        return fn(x, w, b)
+    x = gathered(reduced(x), 1)
+    pl = x.placements
+    return on_shards(lambda *a: (fn(*a),), x.device_mesh, (
+        (x, pl), (w, _moved(pl, {2: 1})), (b, _moved(pl, {2: 0}))),
+        (pl,))[0]
+
+
 class _GradReduced(torch.autograd.Function):
     """The identity, whose gradient has its pending partial sums
     completed."""
@@ -261,30 +322,53 @@ def grad_reduced(x):
     return _GradReduced.apply(x)
 
 
-def index_add(buf, idx, src):
-    """``buf.index_add_(0, idx, src)``; out of place on a DTensor, for
-    which torch 2.11 has no rule of the in-place op."""
-    if isinstance(buf, DTensor):
-        return torch.index_add(buf, 0, idx, src)
-    return buf.index_add_(0, idx, src)
-
-
 def take_last(x, idx):
     """``x.gather(-1, idx[..., None])[..., 0]``: each row's entry at
-    ``idx``. For a DTensor, a sum of ``x`` masked to ``idx`` against a
-    column index placed as ``x``'s last dimension is: XLA's
-    vocabulary-parallel gather, each device reading its own columns,
-    completed over the shards. (DTensor's gather would differentiate
-    into zeros of the global shape, replicated on every device.)"""
+    ``idx``. On a mesh each device sums its shard of ``x`` masked to the
+    columns it holds that ``idx`` names, and the partial sums are
+    completed over the shards: XLA's vocabulary-parallel gather. (DTensor's
+    gather would differentiate into zeros of the global shape, replicated
+    on every device, and its rule for the mask's comparison of a
+    column-sharded index with ``idx`` differs between torches.)"""
     if not isinstance(x, DTensor):
         return x.gather(-1, idx[..., None])[..., 0]
     last, mesh = x.dim() - 1, x.device_mesh
-    cols = distribute_tensor(
-        torch.arange(x.shape[-1], device=x.device), mesh,
-        [Shard(0) if isinstance(p, Shard) and p.dim == last else Replicate()
-         for p in x.placements], src_data_rank=None)
-    # The sum over the sharded columns is partial: XLA's all-reduce.
-    return reduced((x * (cols == idx[..., None])).sum(-1))
+    x = reduced(x)
+    start, size = _local_range(x.shape[-1], mesh, x.placements, last)
+    rows = tuple(Replicate() if isinstance(p, Shard) and p.dim == last
+                 else p for p in x.placements)
+    out = tuple(Partial() if isinstance(p, Shard) and p.dim == last
+                else p for p in x.placements)
+
+    def pick(xl, il):
+        cols = torch.arange(start, start + size, device=xl.device)
+        return ((xl * (cols == il[..., None])).sum(-1),)
+
+    return reduced(on_shards(pick, mesh, ((x, x.placements), (idx, rows)),
+                             (out,))[0])
+
+
+def mean_last(x):
+    """``x.mean(-1, keepdim=True)``. On a mesh that shards the last
+    dimension the partial means are completed by one all-reduce; DTensor
+    would carry them on into the ops that use them, where the torches'
+    rules differ."""
+    if not _shards(x, x.dim() - 1):
+        return x.mean(-1, keepdim=True)
+    return reduced(x.mean(-1, keepdim=True))
+
+
+def on_rows(fn, x, n: int):
+    """``fn(x)``, an op along x's last dimension, independent across the
+    others, that returns ``n`` tensors of x's leading shape (a top-k). On
+    a mesh it runs on each device's shards of the leading dimensions,
+    after x's pending sums are completed and its last dimension gathered;
+    the torches' rules for a sort and its backward (a scatter) differ."""
+    if not isinstance(x, DTensor):
+        return fn(x)
+    x = gathered(reduced(x), x.dim() - 1)
+    return on_shards(fn, x.device_mesh, ((x, x.placements),),
+                     (x.placements,) * n)
 
 
 def _local_range(size: int, mesh, placements, dim: int) -> tuple:
@@ -350,22 +434,170 @@ def logsumexp_last(x):
             )[..., 0]
 
 
-def embed_lookup(table, ids):
-    """``table[ids]``: rows of a (V, D) table. On a mesh that shards the
-    vocabulary, each shard looks up the ids it holds, zeros the others,
-    and the partial rows are summed by one all-reduce of the result (XLA's
-    vocabulary-parallel gather). DTensor would move the table to D
-    shards, an all-to-all of the whole table. ``ids`` is replicated."""
-    if not _shards(table, 0):
-        return table[ids]
-    mesh = table.device_mesh
-    start, size = _local_range(table.shape[0], mesh, table.placements, 0)
-    rel = (ids.full_tensor() if isinstance(ids, DTensor) else ids) - start
+def _on_mesh(x, mesh):
+    """``x`` as a DTensor on ``mesh``: a plain tensor is replicated."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def _row_lookup(fn, buf, idx, *extra):
+    """``fn(local buf, idx - start, size, *extra)`` on each device's
+    shards, for a (M, ...) ``buf`` whose rows ``idx`` selects: ``start``
+    and ``size`` are the rows this device holds, and ``fn`` zeros what
+    ``idx`` asks of the rows it does not. ``idx`` and ``extra`` (tensors
+    of ``idx``'s leading shape) stay on their shards of their first
+    dimension, and the result takes those placements there, a partial
+    sum on the axes that shard ``buf``'s rows, completed by one
+    reduction. Where one axis shards both, ``idx`` and ``extra`` are
+    gathered on it and the reduction scatters the result back to its
+    shards. ``buf``'s other dimensions and ``idx``'s are gathered (the
+    rules shard neither)."""
+    mesh = buf.device_mesh
+    buf = gathered(reduced(buf), *range(1, buf.dim()))
+    idx = _on_mesh(idx, mesh)
+    both = {md for md, (b, i) in enumerate(zip(buf.placements,
+                                               idx.placements))
+            if _shard0(b) and _shard0(i)}
+    ipl = tuple(Shard(0) if _shard0(p) and md not in both else Replicate()
+                for md, p in enumerate(idx.placements))
+    out = tuple(Partial() if _shard0(b) else p
+                for b, p in zip(buf.placements, ipl))
+    start, size = _local_range(buf.shape[0], mesh, buf.placements, 0)
+    res = on_shards(lambda b, i, *x: (fn(b, i - start, size, *x),), mesh,
+                    ((buf, buf.placements), (idx, ipl),
+                     *((_on_mesh(t, mesh), ipl) for t in extra)),
+                    (out,))[0]
+    if both:
+        res = res.redistribute(mesh, tuple(
+            Shard(0) if md in both else p for md, p in enumerate(out)))
+    return reduced(res)
+
+
+def _shard0(p) -> bool:
+    """Whether placement ``p`` shards dimension 0."""
+    return p == Shard(0)
+
+
+def _masked_rows(b, rel, size):
+    """The rows ``rel`` of ``b``, zeros where ``rel`` is not in [0,
+    size)."""
     hit = (rel >= 0) & (rel < size)
-    rows = table.to_local()[rel.clamp(0, size - 1)]
-    rows = torch.where(hit[..., None], rows, torch.zeros_like(rows))
-    out = rows.dim() - 1
-    pl = [Partial() if isinstance(p, Shard) and p.dim == 0
-          else Shard(out) if isinstance(p, Shard) else p
-          for p in table.placements]
-    return reduced(DTensor.from_local(rows, mesh, pl, run_check=False))
+    rows = b[rel.clamp(0, size - 1)]
+    return torch.where(hit[..., None], rows, torch.zeros_like(rows))
+
+
+def embed_lookup(table, ids, dtype=None):
+    """``table[ids]``: rows of a (V, D) table for ids of any shape, cast to
+    ``dtype`` if one is given. On a mesh the table is cast first, on its
+    shards, so that the rows' reduction moves the compute dtype. Each
+    device looks up, in the rows of the table it holds, the ids it holds,
+    zeros the ids it does not hold, and the partial rows are summed by
+    one reduction (XLA's vocabulary-parallel gather): the rows
+    are sharded as the ids are (a batch on the data axes) and complete
+    on the vocabulary's axis. The backward is a local index_add into
+    each table shard. DTensor would move the table to D shards (an
+    all-to-all of the whole table) or, on torch 2.11, fail on ids
+    sharded on several axes and in the backward."""
+    if not isinstance(table, DTensor):
+        return table[ids] if dtype is None else table[ids].to(dtype)
+    if dtype is not None:
+        table = table.to(dtype)
+    return _row_lookup(_masked_rows, table, ids)
+
+
+def take_rows(buf, idx, w, k: int):
+    """``(buf[idx] * w[:, None]).reshape(-1, k, D).sum(1)``: the rows of a
+    (M, D) buffer that ``idx`` (R,) selects, weighted by ``w`` (R,), summed
+    over each run of ``k`` (the MoE's gather back of each token's k
+    routed copies). On a mesh each device reads the rows it holds for
+    the indices it holds, weights and sums them there, and the partial
+    sums (N, D) are completed by one reduction (``_row_lookup``): the
+    result has ``idx``'s placements on its rows. DTensor's index rule for
+    a buffer sharded on its rows depends on the torch: 2.13 moves it to
+    D shards by an all-to-all, 2.11 gathers it whole."""
+    if not isinstance(buf, DTensor):
+        return (buf[idx] * w[:, None]).reshape(-1, k, buf.shape[1]).sum(1)
+
+    def fn(b, rel, size, wl):
+        rows = _masked_rows(b, rel, size) * wl[:, None]
+        return rows.reshape(-1, k, b.shape[1]).sum(1)
+
+    # w's gradient is a partial sum where the rows are: completed at once.
+    return _row_lookup(fn, buf, idx, grad_reduced(w))
+
+
+def rows_like(x, ref):
+    """``x`` on ``ref``'s shards of their first dimension, which they
+    share, and replicated on every other axis: a local slice where ``x``
+    is replicated. A plain ``ref`` leaves ``x`` as it is."""
+    if not isinstance(ref, DTensor):
+        return x
+    mesh = ref.device_mesh
+    pl = tuple(Shard(0) if _shard0(p) else Replicate()
+               for p in ref.placements)
+    x = _on_mesh(x, mesh)
+    return x if x.placements == pl else x.redistribute(mesh, pl)
+
+
+def placed_like(x, ref):
+    """``x`` placed as ``ref``, a tensor of its shape: a local slice where
+    ``x`` is replicated and ``ref`` sharded. A plain tensor is left as
+    it is."""
+    if not isinstance(x, DTensor) or not isinstance(ref, DTensor):
+        return x
+    return _placed(x, ref.placements)
+
+
+def _placed(x, pl: tuple):
+    """``x`` redistributed to ``pl``, the shards it can cut locally
+    (replicated to sharded) cut first, so that the reductions that follow
+    move only those shards."""
+    cut = tuple(t if isinstance(p, Replicate) and isinstance(t, Shard)
+                else p for p, t in zip(x.placements, pl))
+    if cut != x.placements:
+        x = x.redistribute(x.device_mesh, cut)
+    return x if x.placements == pl else x.redistribute(x.device_mesh, pl)
+
+
+def scatter_rows(idx, src, hint_name: str, shape: tuple):
+    """``src.new_zeros((n, D)).index_add_(0, idx, src)``: a buffer of n =
+    prod(``shape[:-1]``) rows with each row of ``src`` (R, D) added at row
+    ``idx`` (R,) (the MoE's scatter of the routed copies), placed as the
+    hint ``hint_name`` places it reshaped to ``shape``, whose first
+    dimension is the outermost of the rows. On a mesh it is the transpose
+    of ``take_rows``: each device adds, into the rows of the buffer it
+    holds under the hint, the copies it holds whose ``idx`` falls there,
+    a partial sum on the axes that shard ``src``'s rows, completed by one
+    reduction of its shard (XLA's scatter of each shard's rows and its
+    all-reduce of the buffer). On an axis that shards the hint's rows
+    too, the copies are gathered first: they are fewer than the buffer's
+    rows by the capacity factor. No device holds the whole buffer, and
+    the backward reads each shard's rows locally; the copies' gradient,
+    a partial sum on the axes that shard only the buffer, is completed
+    by one reduction of (R, D)."""
+    n = math.prod(shape[:-1])
+    if not isinstance(src, DTensor):
+        return src.new_zeros((n, src.shape[1])).index_add_(0, idx, src)
+    mesh = src.device_mesh
+    src = grad_reduced(gathered(reduced(src), 1))
+    spec = _SPECS.get(hint_name) if _MESH is not None else None
+    target = tuple(
+        Shard(0) if _shard0(t) else Replicate() for t in (
+            NamedSharding(mesh, drop_indivisible(mesh, spec, shape))
+            .placements if spec is not None else (Replicate(),) * mesh.ndim))
+    pl = tuple(Replicate() if _shard0(p) and _shard0(t) else p
+               for p, t in zip(src.placements, target))
+    out = tuple(t if _shard0(t) else Partial() if _shard0(p) else p
+                for p, t in zip(pl, target))
+    start, size = _local_range(n, mesh, target, 0)
+
+    def add(i, s):
+        rel = i - start
+        hit = ((rel >= 0) & (rel < size))[:, None]
+        s = torch.where(hit, s, torch.zeros_like(s))
+        return (s.new_zeros((size, s.shape[1])).index_add_(
+            0, rel.clamp(0, size - 1), s),)
+
+    return reduced(on_shards(add, mesh, ((idx, pl), (src, pl)), (out,))[0])

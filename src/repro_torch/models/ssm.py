@@ -33,7 +33,8 @@ import torch.utils.checkpoint
 
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.pspec import gathered, on_ssd_shards, reduced
+from repro_torch.models.pspec import (gathered, on_conv_shards,
+                                      on_ssd_shards, placed_like, reduced)
 
 Tensor = torch.Tensor
 
@@ -84,7 +85,13 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig, *, device,
 
 def _causal_conv(xBC: Tensor, w: Tensor, b: Tensor) -> Tensor:
     """Depthwise causal conv, width W, as a sum of shifted slices in the
-    input's dtype (JAX's order of additions)."""
+    input's dtype (JAX's order of additions). On a mesh it runs on each
+    device's shards of the batch and the channels
+    (``pspec.on_conv_shards``)."""
+    return on_conv_shards(_conv, xBC, w, b)
+
+
+def _conv(xBC: Tensor, w: Tensor, b: Tensor) -> Tensor:
     W = w.shape[0]
     L = xBC.shape[1]
     xp = F.pad(xBC, (0, 0, W - 1, 0))                # (B, L+W-1, C)
@@ -138,9 +145,11 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
                 C_in: Tensor, D_skip: Tensor, chunk: int,
                 h0: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
     """Chunked SSD scan in f32. x (B, L, H, P), dt (B, L, H) positive step
-    sizes, A (H,) negative, B_in/C_in (B, L, N), D_skip (H,); L a multiple
-    of ``chunk``. Returns (y (B, L, H, P) in x's dtype, h_final (B, H, N,
-    P) f32).
+    sizes, A (H,) negative, B_in/C_in (B, L, N), D_skip (H,). L is padded
+    up to a multiple of ``chunk``, dt with zeros, so that padded steps
+    neither decay the state (exp(0) = 1) nor inject input: h_final stays
+    exact for prefill -> decode. Returns (y (B, L, H, P) in x's dtype,
+    h_final (B, H, N, P) f32).
 
     With inclusive in-chunk cumulants ``cum_i = sum_{k<=i} dt_k A``:
 
@@ -161,9 +170,13 @@ def ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
 def _ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
                  C_in: Tensor, D_skip: Tensor, h0: Optional[Tensor], *,
                  chunk: int) -> Tuple[Tensor, Tensor]:
-    Bb, L, H, P = x.shape
+    L = x.shape[1]
+    pad = (-L) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt, B_in, C_in = (F.pad(t, (0, 0, 0, pad)) for t in (dt, B_in, C_in))
+    Bb, Lp, H, P = x.shape
     N = B_in.shape[-1]
-    assert L % chunk == 0, (L, chunk)
     f32 = torch.float32
     A = A.to(f32)
     D_skip = D_skip.to(f32)
@@ -177,7 +190,7 @@ def _ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
         step = functools.partial(torch.utils.checkpoint.checkpoint,
                                  _chunk_step, use_reentrant=False)
     ys = []
-    for c0 in range(0, L, chunk):
+    for c0 in range(0, Lp, chunk):
         sl = slice(c0, c0 + chunk)
         x32 = x[:, sl].to(f32)                              # (B,Q,H,P)
         M, y_inter, h = step(x32, dt[:, sl].to(f32), A, B_in[:, sl].to(f32),
@@ -185,7 +198,7 @@ def _ssd_chunked(x: Tensor, dt: Tensor, A: Tensor, B_in: Tensor,
         y_intra = torch.einsum("bijh,bjhp->bihp", M, x32)
         y = y_intra + y_inter + x32 * D_skip[None, None, :, None]
         ys.append(y.to(x.dtype))
-    return torch.cat(ys, dim=1), h
+    return torch.cat(ys, dim=1)[:, :L], h
 
 
 def mamba2_forward(p, cfg: ModelConfig, x: Tensor, *,
@@ -211,15 +224,8 @@ def mamba2_forward(p, cfg: ModelConfig, x: Tensor, *,
         y, h_final = ssd_ops.ssd_scan(xs.reshape(Bb, L, H, P), dt, A, B_in,
                                       C_in, p["D"], chunk=cfg.ssm_chunk)
     elif impl == "chunked":
-        # Pad L up to a chunk multiple; dt is padded with ZEROS after the
-        # softplus so padded steps neither decay the state (exp(0) = 1)
-        # nor inject input: h_final stays exact for prefill -> decode.
-        pad = (-L) % cfg.ssm_chunk
-        xs, B_in, C_in, dt = (F.pad(t, (0, 0, 0, pad))
-                              for t in (xs, B_in, C_in, dt))
-        y, h_final = ssd_chunked(xs.reshape(Bb, L + pad, H, P), dt, A, B_in,
-                                 C_in, p["D"], cfg.ssm_chunk)
-        y = y[:, :L]
+        y, h_final = ssd_chunked(xs.reshape(Bb, L, H, P), dt, A, B_in, C_in,
+                                 p["D"], cfg.ssm_chunk)
     elif impl == "naive":
         y, h_final = ssd_sequential(xs.reshape(Bb, L, H, P), dt, A, B_in,
                                     C_in, p["D"])
@@ -283,8 +289,10 @@ def mamba2_decode(p, cfg: ModelConfig, x: Tensor,
     # since DTensor cannot flatten a sharded inner dimension.
     h = state.h * dA[:, :, None, None] + _outer(
         gathered(Bdt.transpose(1, 2), 1), gathered(xs, 1))
-    y = (torch.einsum("bn,bhnp->bhp", C_in.float(), h)
-         + xs * p["D"][None, :, None])
+    # The skip term on the state term's shards of the heads
+    # (pspec.placed_like), where the torches' rules differ.
+    y = torch.einsum("bn,bhnp->bhp", C_in.float(), h)
+    y = y + placed_like(xs, y) * p["D"][None, :, None]
     y = y.reshape(Bb, d_in).to(dt_)
     y = layers.rms_norm(y * F.silu(z), p["norm_w"])
     out = (y @ p["out_proj"].to(dt_))[:, None]

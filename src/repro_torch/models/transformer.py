@@ -195,7 +195,10 @@ def _unstack(tree, n: int) -> list:
 
 
 def _embed(params, cfg: ModelConfig, tokens: Tensor) -> Tensor:
-    return params["embed"][tokens.long()].to(cfg.torch_dtype)
+    """The tokens' rows of the table in the compute dtype. On a mesh the
+    ids stay on their data shards and the table on its vocabulary shards
+    (``pspec.embed_lookup``)."""
+    return embed_lookup(params["embed"], tokens.long(), cfg.torch_dtype)
 
 
 def _logits(params, cfg: ModelConfig, x: Tensor) -> Tensor:
@@ -390,16 +393,17 @@ def chunked_cross_entropy(h: Tensor, w_head: Tensor, labels: Tensor,
     S = h.shape[1]
     block = min(block, S)
     assert S % block == 0, (S, block)
-    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
-    m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    nll_sum = m_sum = None
     for i in range(0, S, block):
         sl = slice(i, i + block)
         nll, m = torch.utils.checkpoint.checkpoint(
             _ce_block, h[:, sl], w_head, labels[:, sl], mask[:, sl],
             use_reentrant=False)
-        nll_sum = nll_sum + nll
-        m_sum = m_sum + m
-    return nll_sum, m_sum
+        nll_sum = nll if nll_sum is None else nll_sum + nll
+        m_sum = m if m_sum is None else m_sum + m
+    # On a mesh each block's sums are partial over the batch's shards:
+    # completed once (pspec.reduced).
+    return reduced(nll_sum), reduced(m_sum)
 
 
 def forward_train(params, cfg: ModelConfig, batch: Dict[str, Tensor],
@@ -426,7 +430,11 @@ def forward_train(params, cfg: ModelConfig, batch: Dict[str, Tensor],
     tokens, labels = batch["tokens"], batch["labels"]
     B = tokens.shape[0]
     dt = cfg.torch_dtype
-    x = hint(params["embed"].to(dt)[tokens.long()], "activations")
+    # The table is cast before the lookup, as in JAX (the lookup's
+    # gradient is summed in the compute dtype); on a mesh the lookup runs
+    # on the shards (pspec.embed_lookup).
+    x = hint(embed_lookup(params["embed"].to(dt), tokens.long()),
+             "activations")
 
     enc_out = enc_positions = None
     if cfg.is_encdec:
@@ -615,9 +623,9 @@ def decode_step(params, cfg: ModelConfig, token: Tensor,
                 caches: DecodeCaches, impl: Optional[str] = None):
     """One serve step: token (B, 1) -> f32 logits (B, V), caches (updated
     in place, ``pos`` advanced)."""
-    # On a mesh the (B, 1) ids are gathered (a token sharded over several
-    # mesh axes, pod and data, has no DTensor rule for the lookup), and a
-    # table sharded on the vocabulary is looked up on its shards.
+    # On a mesh the (B, 1) ids are gathered, so that every device holds
+    # the whole token's rows, and a table sharded on the vocabulary is
+    # looked up on its shards.
     x = embed_lookup(params["embed"], gathered(token, 0).long())
     x = _decode_layers(params, cfg, x.to(cfg.torch_dtype), caches, impl)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
@@ -683,10 +691,7 @@ def prefill_forward(params, cfg: ModelConfig, tokens: Tensor, *,
     (encoder-decoder, which raises ValueError without them). The caches
     are in the compute dtype whatever ``cfg.kv_dtype`` says, as the JAX
     package's are."""
-    # On a mesh the lookup leaves the rows sharded on D; they are gathered
-    # once, so that each block's projections start from rows whole on
-    # the model axis (else every projection is a pending partial sum).
-    x = gathered(_embed(params, cfg, tokens), -1)
+    x = _embed(params, cfg, tokens)
     dt = x.dtype
     enc = None
     if cfg.is_encdec:

@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.pspec import reduced
 from repro_torch.models.transformer import forward_train
 from repro_torch.optim.adamw import AdamWState, adamw_init, adamw_update
 from repro_torch.optim.schedule import warmup_cosine
@@ -54,9 +55,13 @@ def make_train_step(
         loss, metrics = forward_train(params, cfg, batch, impl=impl,
                                       remat=remat)
         # A leaf the loss does not reach gets a zero gradient, as in JAX.
-        grads = torch.autograd.grad(loss, list(tree.leaves(params)),
-                                    allow_unused=True,
-                                    materialize_grads=True)
+        # On a mesh a gradient that is a partial sum (a parameter
+        # replicated on an axis that shards the batch) is completed once,
+        # XLA's data-parallel all-reduce; DTensor would complete it again
+        # in each AdamW op that reads it.
+        grads = [reduced(g) for g in torch.autograd.grad(
+            loss, list(tree.leaves(params)), allow_unused=True,
+            materialize_grads=True)]
         lr = warmup_cosine(state.opt.step + 1, peak_lr=peak_lr,
                            warmup_steps=warmup_steps,
                            total_steps=total_steps)

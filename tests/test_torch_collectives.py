@@ -16,16 +16,17 @@ train step's, on a real 2 x 2 gloo world of four processes equal the
 plain ones. (d), against XLA's collectives, and phase 18's pins are in
 ``tests/test_torch_dryrun_mesh.py``, beside the runs they share.
 """
+import math
 import os
 import subprocess
 import sys
-import traceback
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
 import torch.distributed as dist  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 from torch.distributed.device_mesh import init_device_mesh  # noqa: E402
 from torch.distributed.tensor import (  # noqa: E402
     Partial, Replicate, Shard, distribute_tensor,
@@ -41,8 +42,9 @@ from repro_torch.launch import roofline as rl  # noqa: E402
 from repro_torch.launch import sharding  # noqa: E402
 from repro_torch.launch.mesh import make_production_mesh  # noqa: E402
 from repro_torch.models import (  # noqa: E402
-    attention, decode_step, init_model, pspec, ssm, transformer,
+    attention, decode_step, init_model, layers, moe, pspec, ssm, transformer,
 )
+from repro_torch.training import train_step  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
@@ -209,29 +211,7 @@ def test_depth_fit_equals_the_whole_trace(arch, kind):
 
 # ---- (e) the decode step's three sites -------------------------------------
 
-def _sites(monkeypatch):
-    """Records (kind, result shape, the pspec function it ran in) of each
-    collective the counter counts."""
-    seen = []
-    real = rl._CollectiveCounter._count
-
-    def spy(self, func, args, kwargs, result):
-        before = {k: v["count"] for k, v in self.out.items()}
-        real(self, func, args, kwargs, result)
-        kind = next((k for k, v in self.out.items()
-                     if v["count"] != before[k]), None)
-        if kind is not None:
-            where = [f.name for f in traceback.extract_stack()
-                     if f.filename.endswith(os.path.join("models",
-                                                         "pspec.py"))]
-            seen.append((kind, tuple(result.shape),
-                         where[0] if where else None))
-
-    monkeypatch.setattr(rl._CollectiveCounter, "_count", spy)
-    return seen
-
-
-def test_the_sharded_decode_gathers_no_cache_score_or_table(monkeypatch):
+def test_the_sharded_decode_gathers_no_cache_score_or_table():
     """SMOKE olmo-1b's decode step on the 16 x 16 fake mesh, its caches'
     W and its table's vocabulary sharded on 'model': no all-to-all; every
     all-gather is an explicit one of ``pspec`` (the token, the heads
@@ -240,8 +220,7 @@ def test_the_sharded_decode_gathers_no_cache_score_or_table(monkeypatch):
     to make; the lookup's one all-reduce is of (B, 1, D)."""
     cfg = configs.get_smoke("olmo-1b")
     shape = InputShape("d", 64, 32, "decode")
-    seen = _sites(monkeypatch)
-    with dryrun._world(256):
+    with dryrun._world(256), rl.record_sites() as records:
         mesh = make_production_mesh()
         pspec.set_mesh(mesh, sharding.activation_hint_specs(mesh))
         try:
@@ -249,6 +228,7 @@ def test_the_sharded_decode_gathers_no_cache_score_or_table(monkeypatch):
                                           "model")
         finally:
             pspec.set_mesh(None)
+    seen = [(r["kind"], r["shape"], r["helper"]) for r in records]
     B, W = shape.global_batch, shape.seq_len
     gathered_cache = (B // 16) * W * cfg.num_kv_heads * cfg.hd * 4
     gathers = [(s, w) for k, s, w in seen if k == "all-gather"]
@@ -262,6 +242,90 @@ def test_the_sharded_decode_gathers_no_cache_score_or_table(monkeypatch):
     # The max and the sum of each layer's softmax, and its P.V.
     assert [k for k, _, w in seen if w == "softmax_last"] == [
         "all-reduce"] * 2 * cfg.num_layers
+
+
+# ---- a version guard: the ops whose rules differ between torches ----------
+
+# The aten ops whose DTensor rules place a sharded operand differently on
+# torch 2.11 (the card's) and 2.13: the model runs each of them on local
+# shards, so neither torch's rule decides a collective.
+VERSIONED = ("aten.index.Tensor", "aten.index_put.default",
+             "aten.index_put_.default", "aten._index_put_impl_.default",
+             "aten.index_add.default", "aten.index_add_.default",
+             "aten.constant_pad_nd.default")
+
+
+@pytest.mark.parametrize("arch,kind,multi_pod,ep_axis", [
+    ("dbrx-132b", "decode", False, "model"),
+    ("dbrx-132b", "decode", True, "data"),
+    ("mamba2-370m", "decode", False, "model"),
+    ("olmo-1b", "prefill", True, "model"),
+    ("mamba2-370m", "prefill", False, "model"),
+    ("zamba2-2.7b", "train", False, "model"),
+    ("dbrx-132b", "train", False, "model"),
+    ("olmo-1b", "train", True, "model")])
+def test_no_versioned_op_sees_a_sharded_operand(monkeypatch, arch, kind,
+                                                multi_pod, ep_axis):
+    """Every aten op that reaches DTensor's sharding propagation in the
+    decode (the MoE's and the SSM's), prefill and train step (the lookup
+    and its backward, the SSM conv, the MoE dispatch, forward and
+    backward) at FULL widths and two layer units, on small shapes of the
+    fake production meshes (the rules shard what they shard at full
+    size): none of ``VERSIONED`` sees an operand with a ``Shard``
+    placement. The propagator is spied on where torch 2.13 runs it
+    (``propagate_op_sharding_non_cached``, behind its cache, which is
+    cleared)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._dtensor_spec import DTensorSpec
+    from torch.utils._pytree import tree_leaves
+
+    prop = DTensor._op_dispatcher.sharding_propagator
+    real = prop.propagate_op_sharding_non_cached
+    seen = []
+
+    def spy(op_schema):
+        specs = [a for a in tree_leaves((op_schema.args_schema,
+                                         op_schema.kwargs_schema))
+                 if isinstance(a, DTensorSpec)]
+        seen.append((str(op_schema.op), any(
+            isinstance(p, Shard) for a in specs for p in a.placements)))
+        return real(op_schema)
+
+    monkeypatch.setattr(prop, "propagate_op_sharding_non_cached", spy)
+    prop.propagate_op_sharding.cache_clear()
+    cfg = dryrun._depth_variant(configs.get_config(arch), 2)
+    shape = InputShape("s", *{"decode": (64, 32), "prefill": (64, 32),
+                              "train": (32, 256)}[kind], kind)
+    try:
+        with dryrun._world(512):
+            mesh = make_production_mesh(multi_pod=multi_pod)
+            pspec.set_mesh(mesh, sharding.activation_hint_specs(
+                mesh, "tp", ep_axis))
+            try:
+                dryrun._mesh_trace(cfg, shape, mesh, True, "", "tp", ep_axis)
+            finally:
+                pspec.set_mesh(None)
+    finally:
+        prop.propagate_op_sharding.cache_clear()
+    assert any(op == "aten.mm.default" for op, _ in seen)
+    assert [op for op, sharded in seen if sharded and op in VERSIONED] == []
+
+
+def test_the_site_probe_names_each_collectives_site():
+    """``launch/sites.py`` on SMOKE olmo-1b's decode on the 16 x 16 fake
+    mesh: its total is the counter's, each kind's bytes are the sum over
+    its sites, and the lookup's all-reduce is named by its helper."""
+    from repro_torch.launch import sites
+
+    r = sites.probe("olmo-1b", "decode_32k", seq_len=64, batch=32,
+                    smoke=True)
+    assert r["ok"] and r["total_wire_bytes"] == sum(r["wire_bytes"].values())
+    for kind, wire in r["wire_bytes"].items():
+        assert wire == pytest.approx(sum(
+            x["wire_bytes"] for x in r["sites"] if x["kind"] == kind),
+            rel=1e-12)
+    assert any(x["kind"] == "all-reduce" and "[embed_lookup]" in x["site"]
+               for x in r["sites"])
 
 
 # ---- the sequence forms: no collective inside a blocked loop ----------------
@@ -322,7 +386,9 @@ def test_prefill_collectives_do_not_grow_with_the_blocks(arch, lengths):
     """SMOKE prefill on the 16 x 16 fake mesh: each kind's count of
     collectives is the same at two sequence lengths with twice as many
     attention blocks or SSD chunks, and the all-reduces are Megatron's,
-    one where each sub-block ends."""
+    one where each sub-block ends, the SSM's gated norm's mean square
+    over its channel shards, and the lookup's one (a vocabulary-parallel
+    gather, which moves no table)."""
     cfg = configs.get_smoke(arch)
     counts = []
     with dryrun._world(256):
@@ -337,20 +403,96 @@ def test_prefill_collectives_do_not_grow_with_the_blocks(arch, lengths):
         finally:
             pspec.set_mesh(None)
     assert counts[0] == counts[1]
-    per_layer = 2 if cfg.arch_type == "dense" else 1
-    assert counts[0]["all-reduce"] == per_layer * cfg.num_layers
+    per_layer = 2  # attention and MLP; or the SSM block and its norm
+    assert counts[0]["all-reduce"] == per_layer * cfg.num_layers + 1
+    assert counts[0]["all-to-all"] == 0
 
 
 def _old_write(cache, slot, row):
     cache[:, slot] = row
 
 
+def _old_scatter(idx, src, hint_name, shape):
+    n = math.prod(shape[:-1])
+    zeros = torch.zeros_like(src[:1].expand(n, src.shape[1]),
+                             memory_format=torch.contiguous_format)
+    return zeros.index_add_(0, idx, src)
+
+
+def _old_take(buf, idx, w, k):
+    return (buf[idx] * w[:, None]).reshape(-1, k, buf.shape[1]).sum(1)
+
+
+def _old_lookup(table, ids, dtype=None):
+    rows = table[ids]
+    return rows if dtype is None else rows.to(dtype)
+
+
+def _old_cross_entropy(h, w_head, labels, mask, block=512):
+    S = h.shape[1]
+    block = min(block, S)
+    assert S % block == 0, (S, block)
+    nll_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    m_sum = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(0, S, block):
+        sl = slice(i, i + block)
+        nll, m = torch.utils.checkpoint.checkpoint(
+            transformer._ce_block, h[:, sl], w_head, labels[:, sl],
+            mask[:, sl], use_reentrant=False)
+        nll_sum = nll_sum + nll
+        m_sum = m_sum + m
+    return nll_sum, m_sum
+
+
+def _old_padded_scan(scan):
+    """``scan`` (``ssd_chunked``) called as the SSM block called it: its
+    flat input, dt, B and C padded to a chunk multiple outside it, and y
+    cut back after."""
+    def padded(x, dt, A, B_in, C_in, D_skip, chunk, h0=None):
+        Bb, L, H, P = x.shape
+        pad = (-L) % chunk
+        xs, B_in, C_in, dt = (F.pad(t, (0, 0, 0, pad)) for t in (
+            x.reshape(Bb, L, H * P), B_in, C_in, dt))
+        y, h = scan(xs.reshape(Bb, L + pad, H, P), dt, A, B_in, C_in,
+                    D_skip, chunk, h0)
+        return y[:, :L], h
+    return padded
+
+
+def _old_expressions(monkeypatch):
+    """Every site of the model code that runs through a ``pspec`` helper
+    for the sharded model on either torch replaced by the expression it
+    replaced: the lookups (index, then cast), the SSM conv and the scan's
+    padding outside it, the skip term's product, the MoE's top-k, aux
+    loss, scatter into zeros and gather back, the norm's mean square, the
+    cross-entropy's sums from zeros, and the train step's gradients."""
+    identity = lambda x: x  # noqa: E731
+    monkeypatch.setattr(transformer, "embed_lookup", _old_lookup)
+    monkeypatch.setattr(transformer, "reduced", identity)
+    monkeypatch.setattr(transformer, "chunked_cross_entropy",
+                        _old_cross_entropy)
+    monkeypatch.setattr(ssm, "on_conv_shards", lambda fn, *a: fn(*a))
+    monkeypatch.setattr(ssm, "ssd_chunked", _old_padded_scan(ssm.ssd_chunked))
+    monkeypatch.setattr(ssm, "placed_like", lambda x, ref: x)
+    monkeypatch.setattr(moe, "on_rows", lambda fn, x, n: fn(x))
+    monkeypatch.setattr(moe, "reduced", identity)
+    monkeypatch.setattr(moe, "grad_like", identity)
+    monkeypatch.setattr(moe, "scatter_rows", _old_scatter)
+    monkeypatch.setattr(moe, "take_rows", _old_take)
+    monkeypatch.setattr(moe, "rows_like", lambda x, ref: x)
+    monkeypatch.setattr(layers, "mean_last",
+                        lambda x: x.mean(-1, keepdim=True))
+    monkeypatch.setattr(layers, "grad_reduced", identity)
+    monkeypatch.setattr(train_step, "reduced", identity)
+
+
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_plain_decode_is_the_old_expressions(monkeypatch, arch):
     """On plain CPU tensors the decode step through the new helpers is
     bit for bit the step through the expressions they replaced (the slot
-    assignment, ``torch.softmax``, ``table[ids]``, no reduction), logits
-    and every cache, for every architecture over a prefill and 3
+    assignment, ``torch.softmax``, ``table[ids]``, no reduction, the MoE's
+    scatter into zeros and its gather back, the SSM skip term's product),
+    logits and every cache, for every architecture over a prefill and 3
     tokens."""
     cfg = configs.get_smoke(arch)
     params = init_model(cfg, seed=0, device="cpu")
@@ -375,8 +517,52 @@ def test_plain_decode_is_the_old_expressions(monkeypatch, arch):
     monkeypatch.setattr(attention, "softmax_last",
                         lambda s: torch.softmax(s, dim=-1))
     monkeypatch.setattr(attention, "reduced", lambda x: x)
-    monkeypatch.setattr(transformer, "reduced", lambda x: x)
-    monkeypatch.setattr(transformer, "embed_lookup", lambda t, i: t[i])
+    _old_expressions(monkeypatch)
+    old = run()
+    assert len(new) == len(old)
+    assert all(torch.equal(a, b) for a, b in zip(new, old))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_plain_prefill_and_train_are_the_old_expressions(monkeypatch, arch):
+    """On plain CPU tensors the sequence forms through the new helpers
+    (every site ``_old_expressions`` names) are bit for bit the
+    expressions they replaced: prefill_forward's logits and every cache,
+    forward_train's loss and every gradient, and a train step's loss,
+    metrics and new parameters and moments, for every architecture."""
+    cfg = configs.get_smoke(arch)
+    params = init_model(cfg, seed=0, device="cpu")
+    gen = torch.Generator().manual_seed(5)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32), generator=gen)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1)}
+    if cfg.is_encdec:
+        batch["encoder_frames"] = torch.randn(
+            2, 16, cfg.frontend_dim or cfg.d_model, generator=gen)
+    elif cfg.frontend_tokens > 0:
+        batch["frontend"] = torch.randn(2, cfg.frontend_tokens,
+                                        cfg.frontend_dim, generator=gen)
+
+    def run():
+        logits, caches = transformer.prefill_forward(
+            params, cfg, tokens, frontend=batch.get("frontend"),
+            encoder_frames=batch.get("encoder_frames"), impl="chunked")
+        p = {k: v for k, v in params.items()}
+        leaves = [t.detach().requires_grad_()
+                  for t in transformer.tree.leaves(p)]
+        p = transformer.tree.unflatten(p, leaves)
+        loss, _ = transformer.forward_train(p, cfg, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                    materialize_grads=True)
+        state, metrics = train_step.make_train_step(cfg, warmup_steps=1)(
+            train_step.train_state_init(params), batch)
+        return ([logits, loss] + list(grads)
+                + [t for t in caches if isinstance(t, torch.Tensor)]
+                + [torch.as_tensor(v) for _, v in sorted(metrics.items())]
+                + [t for tr in (state.params, state.opt.mu, state.opt.nu)
+                   for t in transformer.tree.leaves(tr)])
+
+    new = run()
+    _old_expressions(monkeypatch)
     old = run()
     assert len(new) == len(old)
     assert all(torch.equal(a, b) for a, b in zip(new, old))
@@ -401,6 +587,22 @@ def test_helpers_on_plain_tensors_are_the_old_expressions():
         s, cache, row)
     assert pspec.on_ssd_shards(lambda *a: a, s, cache, row, 1, 2, 3,
                                None) == (s, cache, row, 1, 2, 3, None)
+    assert pspec.on_conv_shards(lambda *a: a, s, cache, row) == (
+        s, cache, row)
+    assert pspec.placed_like(s, cache) is s
+    assert pspec.rows_like(ids, s) is ids
+    # The sequence forms' lookup, and the MoE's scatter and gather back.
+    ids = torch.randint(0, 50, (3, 7), generator=gen)
+    assert torch.equal(pspec.embed_lookup(table, ids), table[ids])
+    idx = torch.randint(0, 12, (10,), generator=gen)
+    src, w = torch.randn(10, 8, generator=gen), torch.rand(10, generator=gen)
+    want = torch.zeros_like(src[:1].expand(12, 8),
+                            memory_format=torch.contiguous_format)
+    assert torch.equal(pspec.scatter_rows(idx, src, "moe_buffer", (4, 3, 8)),
+                       want.index_add_(0, idx, src))
+    buf = torch.randn(12, 8, generator=gen)
+    assert torch.equal(pspec.take_rows(buf, idx, w, 2),
+                       (buf[idx] * w[:, None]).reshape(5, 2, 8).sum(1))
 
 
 # ---- (f) the sharded decode's values on a real 2 x 2 world -----------------
@@ -417,27 +619,32 @@ from repro_torch import configs
 from repro_torch.launch import sharding
 from repro_torch.models import decode_step, init_caches, init_model, pspec
 
-rank, store = int(sys.argv[1]), sys.argv[2]
+rank, store, arch = int(sys.argv[1]), sys.argv[2], sys.argv[3]
 dist.init_process_group("gloo", store=dist.FileStore(store, 4), rank=rank,
                         world_size=4)
 try:
     mesh = init_device_mesh("cpu", (2, 2), mesh_dim_names=("data", "model"))
     pspec.set_mesh(mesh, sharding.activation_hint_specs(mesh))
-    cfg = configs.get_smoke("olmo-1b")
+    cfg = configs.get_smoke(arch)
     B, W, first, steps = 4, 16, 5, 14
     params = init_model(cfg, seed=0, device="cpu")
     gen = torch.Generator().manual_seed(7)
     plain = init_caches(cfg, B, W, device="cpu")
-    plain = plain._replace(k=torch.randn(plain.k.shape, generator=gen),
-                           v=torch.randn(plain.v.shape, generator=gen),
-                           pos=first)
+    names = [n for n in plain._fields
+             if isinstance(getattr(plain, n), torch.Tensor)]
+    plain = plain._replace(pos=first, **{
+        n: torch.randn(getattr(plain, n).shape, generator=gen)
+        for n in names})
     tokens = torch.randint(0, cfg.vocab_size, (B, steps), generator=gen)
     psh = sharding.tree_param_shardings(mesh, params)
     tsh, csh = sharding.cache_shardings(mesh, cfg, tokens[:, :1], plain)
     dparams = sharding.shard_tree(params, psh)
-    dcaches = sharding.shard_tree(plain._replace(k=plain.k.clone(),
-                                                 v=plain.v.clone()), csh)
-    assert Shard(2) in dcaches.k.placements, dcaches.k.placements
+    dcaches = sharding.shard_tree(plain._replace(**{
+        n: getattr(plain, n).clone() for n in names}), csh)
+    if plain.k is not None:
+        assert Shard(2) in dcaches.k.placements, dcaches.k.placements
+    if plain.ssm_h is not None:
+        assert Shard(2) in dcaches.ssm_h.placements, dcaches.ssm_h.placements
     assert Shard(0) in dparams["embed"].placements
     worst, slots = 0.0, []
     for i in range(steps):
@@ -448,8 +655,8 @@ try:
         with implicit_replication():
             got, dcaches = decode_step(dparams, cfg, tok, dcaches,
                                        impl="einsum")
-        for a, b in ((got, want), (dcaches.k, plain.k),
-                     (dcaches.v, plain.v)):
+        for a, b in [(got, want)] + [(getattr(dcaches, n), getattr(plain, n))
+                                     for n in names]:
             worst = max(worst, float((a.full_tensor() - b).abs().max()))
         assert dcaches.pos == plain.pos
     print("RESULT", rank, worst, sorted(set(slots)), flush=True)
@@ -484,13 +691,17 @@ def _on_a_2x2_world(tmp_path, worker, *args):
     return results
 
 
-def test_sharded_decode_equals_the_plain_step(tmp_path):
-    """SMOKE olmo-1b's decode_step on DTensors placed by the rules on a
-    real (2, 2) ('data', 'model') gloo world of four processes (W and the
-    vocabulary sharded on 'model', the batch on 'data'): logits and both
-    caches equal the plain step within 1e-5 at 14 consecutive positions,
-    whose slots 5..15, 0..2 fall on both W shards and wrap the ring."""
-    results = _on_a_2x2_world(tmp_path, _WORKER)
+@pytest.mark.parametrize("arch", ["olmo-1b", "mamba2-370m", "dbrx-132b"])
+def test_sharded_decode_equals_the_plain_step(tmp_path, arch):
+    """SMOKE decode_step on DTensors placed by the rules on a real (2, 2)
+    ('data', 'model') gloo world of four processes (W, the SSM heads, the
+    experts and the vocabulary sharded on 'model', the batch on 'data'):
+    logits and every cache equal the plain step within 1e-5 at 14
+    consecutive positions, whose slots 5..15, 0..2 fall on both W shards
+    and wrap the ring; mamba2-370m's skip term on the head shards
+    (``pspec.placed_like``), dbrx-132b's MoE dispatch on the copies'
+    shards (``pspec.scatter_rows``, ``take_rows``)."""
+    results = _on_a_2x2_world(tmp_path, _WORKER, arch)
     for r in results:
         assert float(r[2]) <= 1e-5, r
         assert "0," in " ".join(r[3:]) and "15]" in r[-1]
